@@ -1,0 +1,186 @@
+"""mmgt_tpu_torch ops (plain versions, CPU, f32) against mmgt_tpu's Pallas
+kernels run in interpret mode (or their plain reference).
+
+Tolerance 1e-5 (relative and absolute): both sides compute in f32 and
+differ only in summation order.
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mmgt_tpu.ops import attention as JA
+from mmgt_tpu.ops import fused_ln as JL
+from mmgt_tpu.ops import motion_attention as JM
+from mmgt_tpu.ops import norms as JN
+from mmgt_tpu_torch import ops
+from mmgt_tpu_torch.ops import attention as A
+from mmgt_tpu_torch.ops import fused_ln as L
+from mmgt_tpu_torch.ops import motion_attention as M
+from mmgt_tpu_torch.ops import norms as N
+from torch_port_util import close, t
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d,lens", [
+    (2, 2, 64, 96, 8, [96, 40]),
+    (1, 3, 130, 70, 16, None),
+])
+def test_flash_attention_matches_pallas(b, h, sq, skv, d, lens):
+    rng = np.random.default_rng(0)
+    q, k, v = _rand(rng, b, sq, h, d), _rand(rng, b, skv, h, d), _rand(rng, b, skv, h, d)
+    jl = None if lens is None else jnp.asarray(lens, jnp.int32)
+    want = JA.dot_product_attention(
+        *(jnp.asarray(x).transpose(0, 2, 1, 3) for x in (q, k, v)),
+        kv_lens=jl, impl="pallas_interpret",
+    ).transpose(0, 2, 1, 3)
+    kl = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    got = A.flash_attention(t(q), t(k), t(v), kl)
+    close(got, want, **TOL)
+
+
+def test_flash_attention_lse_matches_pallas():
+    rng = np.random.default_rng(1)
+    b, h, sq, skv, d = 2, 2, 40, 72, 8
+    q, k, v = _rand(rng, b, sq, h, d), _rand(rng, b, skv, h, d), _rand(rng, b, skv, h, d)
+    lens = [72, 33]
+    scale = 1.0 / math.sqrt(d)
+    o, lse = JA._flash_attention_fwd_lse(
+        *(jnp.asarray(x).transpose(0, 2, 1, 3) for x in (q, k, v)),
+        jnp.asarray(lens, jnp.int32), scale, interpret=True)
+    got_o, got_lse = A.flash_attention(t(q), t(k), t(v), torch.tensor(lens), scale=scale,
+                                       return_lse=True)
+    close(got_o, np.asarray(o).transpose(0, 2, 1, 3), **TOL)
+    close(got_lse, np.asarray(lse)[:, :sq, 0].reshape(b, h, sq), **TOL)
+
+
+def _pack(x, slab=128):
+    b, s, h, d = x.shape
+    out = np.zeros((b, s, h, slab), np.float32)
+    out[..., :d] = x
+    return jnp.asarray(out.reshape(b, s, h * slab))
+
+
+@pytest.mark.parametrize("bank_on", [True, False])
+def test_two_segment_matches_pallas(bank_on):
+    rng = np.random.default_rng(2)
+    b, h, ls, lb, d = 3, 2, 48, 40, 8
+    q, ks, vs = _rand(rng, b, ls, h, d), _rand(rng, b, ls, h, d), _rand(rng, b, ls, h, d)
+    kb, vb = _rand(rng, 1, lb, h, d), _rand(rng, 1, lb, h, d)
+    # CFG layout: the first row is uncond (bank off)
+    lens = [ls, ls + lb, ls + lb] if bank_on else [ls] * b
+    scale = 1.0 / math.sqrt(d)
+    o, lse = JA._flash_attention_packed_2seg_fwd(
+        _pack(q), _pack(ks), _pack(vs), _pack(kb), _pack(vb), jnp.asarray(lens, jnp.int32),
+        scale, 128, interpret=True)
+    want_o = np.asarray(o).reshape(b, ls, h, 128)[..., :d]
+    got_o, got_lse = A.flash_attention(t(q), t(ks), t(vs), torch.tensor(lens), t(kb), t(vb),
+                                       return_lse=True)
+    close(got_o, want_o, **TOL)
+    close(got_lse, np.asarray(lse)[:, :ls, 0].reshape(b, h, ls), **TOL)
+
+
+def test_single_kv_token_shortcut():
+    rng = np.random.default_rng(3)
+    q, k, v = _rand(rng, 2, 10, 2, 8), _rand(rng, 2, 1, 2, 8), _rand(rng, 2, 1, 2, 8)
+    want = JA.dot_product_attention_bshd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    close(A.flash_attention(t(q), t(k), t(v)), want, **TOL)
+
+
+@pytest.mark.parametrize("impl", ["pallas_interpret", "pallas_blocked_interpret"])
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_group_norm_matches_pallas(impl, act):
+    rng = np.random.default_rng(4)
+    x = _rand(rng, 2, 8, 8, 64) * 2 + 0.5
+    w, b = _rand(rng, 64), _rand(rng, 64)
+    want = JN.group_norm(jnp.asarray(x), 32, jnp.asarray(w), jnp.asarray(b), 1e-6, act,
+                         impl=impl)
+    close(N.group_norm(t(x), 32, t(w), t(b), 1e-6, act), want, **TOL)
+
+
+def test_layer_norm_matches_reference():
+    rng = np.random.default_rng(5)
+    x, w, b = _rand(rng, 3, 7, 48), _rand(rng, 48), _rand(rng, 48)
+    want = JN.layer_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), 1e-5)
+    close(N.layer_norm(t(x), t(w), t(b), 1e-5), want, **TOL)
+
+
+@pytest.mark.parametrize("n_w", [1, 2, 3])
+def test_ln_projections_match_pallas(n_w):
+    rng = np.random.default_rng(6 + n_w)
+    c = 64
+    x = _rand(rng, 2, 40, c)
+    g, beta = 1 + 0.1 * _rand(rng, c), 0.1 * _rand(rng, c)
+    ws = [_rand(rng, c, 24 + 8 * i) / 8 for i in range(n_w)]   # flax (C, D) layout
+    bs = [_rand(rng, 24 + 8 * i) for i in range(n_w)]
+    want = JL._ln_proj_fwd(jnp.asarray(x), jnp.asarray(g), jnp.asarray(beta),
+                           tuple(map(jnp.asarray, ws)), tuple(map(jnp.asarray, bs)), 1e-5,
+                           interpret=True)
+    got = L.ln_projections(t(x), t(g), t(beta), [t(w.T) for w in ws], [t(b) for b in bs])
+    assert len(got) == n_w
+    for gi, wi in zip(got, want):
+        close(gi, wi, **TOL)
+
+
+def _motion_args(rng, b, f, l, c):
+    x = _rand(rng, b, f, l, c)
+    g, beta = 1 + 0.1 * _rand(rng, c), 0.1 * _rand(rng, c)
+    pe = np.asarray(M.sinusoidal_positions(32, c)[:f])
+    ws = [_rand(rng, c, c) / math.sqrt(c) for _ in range(4)]  # flax (in, out)
+    bo = 0.1 * _rand(rng, c)
+    return x, g, beta, pe, ws, bo
+
+
+def _port_motion(x, g, beta, pe, ws, bo, heads):
+    return M.motion_attention(t(x), t(g), t(beta), t(pe), *[t(w.T) for w in ws], t(bo), heads)
+
+
+def test_motion_attention_matches_pallas():
+    rng = np.random.default_rng(10)
+    x, g, beta, pe, ws, bo = _motion_args(rng, 2, 4, 128, 64)
+    want = JM._motion_fwd(jnp.asarray(x), jnp.asarray(g), jnp.asarray(beta), jnp.asarray(pe),
+                          *map(jnp.asarray, ws), jnp.asarray(bo), 8, 1e-5, interpret=True)
+    close(_port_motion(x, g, beta, pe, ws, bo, 8), want, **TOL)
+
+
+def test_motion_attention_64_tokens_matches_reference():
+    """L = 64 (level-3 and mid motion modules): the JAX package routes it
+    to XLA; the port's kernel takes it."""
+    rng = np.random.default_rng(11)
+    x, g, beta, pe, ws, bo = _motion_args(rng, 2, 6, 64, 64)
+    want = JM.motion_ref(jnp.asarray(x), jnp.asarray(g), jnp.asarray(beta), jnp.asarray(pe),
+                         *map(jnp.asarray, ws), jnp.asarray(bo), 8, 1e-5)
+    close(_port_motion(x, g, beta, pe, ws, bo, 8), want, **TOL)
+
+
+def test_sinusoidal_positions_match():
+    from mmgt_tpu.models.blocks import sinusoidal_positions
+
+    close(M.sinusoidal_positions(32, 64), sinusoidal_positions(32, 64), rtol=0, atol=1e-6)
+
+
+def test_cpu_tensors_take_the_plain_path_and_other_devices_raise():
+    """CPU tensors run the plain versions (no kernel launch is counted);
+    a device with no kernel raises instead of falling back."""
+    ops.reset_launch_counts()
+    x = torch.randn(2, 16, 64)
+    A.flash_attention(x.reshape(2, 16, 8, 8), x.reshape(2, 16, 8, 8), x.reshape(2, 16, 8, 8))
+    N.group_norm(x, 32)
+    L.ln_projections(x, torch.ones(64), torch.zeros(64), [torch.randn(8, 64)], [None])
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNEL_MODULES}
+    meta = torch.empty(2, 16, 64, device="meta")
+    with pytest.raises(ValueError):
+        N.group_norm(meta, 32)
+    with pytest.raises(ValueError):
+        L.ln_projections(meta, meta[0, 0], meta[0, 0], [meta[0, :8]], [None])
+    with pytest.raises(ValueError):
+        q = meta.reshape(2, 16, 8, 8)
+        A.flash_attention(q, q, q)
