@@ -16,16 +16,19 @@ Phases, in order; any failure exits non-zero:
   3. main: Pose2VideoPipeline at full SD1.5 width, 512x512, 16 frames (two
      12-frame windows overlapping by 4), 3 DDIM steps, guidance 3.5, seeded
      random weights and inputs; the frames must be finite and every
-     kernel's launch counter must have risen during this phase;
+     kernel's launch counter must have risen during this phase; launches
+     per denoise step are the pipeline's own denoise-phase count / STEPS;
   4. small: a tiny pipeline (64x64, 8 frames, 2 steps, CFG) with one set of
      weights run three ways: f32 on the CPU (the reference), bf16 on the
      CPU (plain versions) and bf16 on the card (kernels); the card's mean
-     error against the reference must stay within 3x the plain bf16 error
-     (+1e-3), for the latents and the decoded frames.
+     error against the reference must stay within SMALL_ERR_FACTOR x the
+     plain bf16 error, for the latents and the decoded frames.
 Then the `kernels` JSON line, the card line, and the result line.
-`python3 chip_smoke.py profile` instead profiles one full-width denoise
-step (device time by kernel family, idle share); phases can be listed
-comma-separated as the one argument.
+
+    python3 chip_smoke.py profile    # build, then profile one denoise step
+
+profiles one full-width denoise step instead (device time by kernel
+family, idle share) and prints no `kernels` line.
 This script imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -44,6 +47,9 @@ GUIDANCE = 3.5
 SEED = 0
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# the small pipeline's card error may reach this multiple of plain bf16's
+# (chip readings so far: 1.08x on the latents, 1.15x on the frames)
+SMALL_ERR_FACTOR = 1.5
 
 
 def log(*a):
@@ -154,8 +160,12 @@ def check_k2(torch, N):
         ("UNet L3 no act", (48, 64, 1280), 32, None),
         ("VAE decoder row", (8, 512 * 512, 128), 32, "silu"),
     ]:
-        x = (torch.randn(*shape, generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)
         c = shape[-1]
+        # every group its own mean and every channel its own scale, so a
+        # channel read into the wrong group's statistics is off by O(1)
+        ch = torch.arange(c, device=dev)
+        x = (torch.randn(*shape, generator=g, device=dev) * (1 + ch / c)
+             + 3.0 * (ch // (c // groups))).to(torch.bfloat16)
         w = torch.randn(c, generator=g, device=dev).to(torch.bfloat16)
         b = torch.randn(c, generator=g, device=dev).to(torch.bfloat16)
         got = N.group_norm(x, groups, w, b, 1e-6, act)
@@ -280,21 +290,12 @@ def run_main(torch, ops, Pose2VideoPipeline):
         f"decode_s {t['decode_s']:.3f} max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"frames mean {frames.mean().item():.4f} std {frames.std().item():.4f}")
-    # launches per denoise step: one more step, counted alone
-    d = {k: v.cuda() for k, v in inputs.items() if k != "masks"}
-    d["masks"] = tuple(tuple(m.cuda() for m in lv) for lv in inputs["masks"])
-    cond, lat = pipe._prepare(**d)
-    from mmgt_tpu_torch.diffusion.solver import init_solver_carry, solver_tables_for
-    from mmgt_tpu_torch.pipelines.context import compute_context_schedule
-    tables = solver_tables_for(pipe.scheduler, STEPS)
-    win = compute_context_schedule(STEPS, FRAMES, pipe.context_size, 1, pipe.context_overlap)
-    ops.reset_launch_counts()
-    pipe._denoise_chunk(lat, init_solver_carry(lat), cond, tables, win[:1], GUIDANCE,
-                        (1.0, 1.0, 1.0))
-    torch.cuda.synchronize()
-    per_step = ops.launch_counts()
-    log("main: launches per denoise step " + json.dumps(per_step))
-    del pipe, cond, lat, frames
+    log("main: launches by phase " + json.dumps(pipe.phase_launches))
+    for name, n in counts.items():
+        require(sum(ph[name] for ph in pipe.phase_launches.values()) == n,
+                f"{name}: the phases' launches do not add up to the run's")
+    per_step = {k: n / STEPS for k, n in pipe.phase_launches["denoise"].items()}
+    del pipe, frames
     torch.cuda.empty_cache()
     return counts, per_step
 
@@ -414,12 +415,13 @@ def run_small(torch, Pose2VideoPipeline):
         errs[tag] = [(outs[tag][i] - outs["cpu_f32"][i]).abs().mean().item() for i in (0, 1)]
     log(f"small: mean abs err vs CPU f32 (latents, frames): plain bf16 on the CPU "
         f"{errs['cpu_bf16']}, kernels bf16 on the card {errs['card_bf16']} "
-        f"(tol: 3x the plain bf16 error + 1e-3)")
+        f"(tol: {SMALL_ERR_FACTOR}x the plain bf16 error)")
     for i, what in enumerate(("latents", "frames")):
         require(all(math.isfinite(o[i].abs().max().item()) for o in outs.values()),
                 f"small pipeline {what} are not finite")
-        require(errs["card_bf16"][i] <= 3 * errs["cpu_bf16"][i] + 1e-3,
-                f"small pipeline {what}: the card's error exceeds 3x the plain bf16 error")
+        require(errs["card_bf16"][i] <= SMALL_ERR_FACTOR * errs["cpu_bf16"][i],
+                f"small pipeline {what}: the card's error exceeds {SMALL_ERR_FACTOR}x "
+                f"the plain bf16 error")
 
 
 KERNEL_META = {
@@ -453,7 +455,9 @@ def main(argv) -> int:
     from mmgt_tpu_torch.ops import norms as N
     from mmgt_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline
 
-    phases = argv[0].split(",") if argv else ["kernels", "main", "small"]
+    if argv not in ([], ["profile"]):
+        print("usage: python3 chip_smoke.py [profile]", file=sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -463,35 +467,28 @@ def main(argv) -> int:
     card = card_line()
     log(f"card: {card}")
 
-    recs = {}
-    if "kernels" in phases:
-        recs["flash_attention"] = check_k1(torch, A)
-        recs["group_norm"] = check_k2(torch, N)
-        recs["ln_projections"] = check_k3(torch, L)
-        recs["motion_attention"] = check_k4(torch, M)
+    if argv:
+        run_profile(torch, Pose2VideoPipeline)
+    else:
+        recs = {"flash_attention": check_k1(torch, A), "group_norm": check_k2(torch, N),
+                "ln_projections": check_k3(torch, L), "motion_attention": check_k4(torch, M)}
         for name, r in recs.items():
             log(f"{name}: ms {r['ms']:.3f} plain_ms {r['plain_ms']:.3f} library_ms "
                 f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 3)} "
                 f"bound_ms {r['bound_ms']:.3f} ({r['bound_by']}) at {r['shape']}")
-    counts = per_step = {}
-    if "main" in phases:
         counts, per_step = run_main(torch, ops, Pose2VideoPipeline)
-    if "small" in phases:
         run_small(torch, Pose2VideoPipeline)
-    if "profile" in phases:
-        run_profile(torch, Pose2VideoPipeline)
-
-    kernels = []
-    for name, r in recs.items():
-        title, route, source, replaces = KERNEL_META[name]
-        kernels.append(dict(
-            name=title, route=route, source=source, replaces=replaces,
-            launches=counts.get(name, 0), launches_per_step=per_step.get(name, 0),
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
-            shape=r["shape"],
-        ))
-    print(json.dumps({"kernels": kernels}))
+        kernels = []
+        for name, r in recs.items():
+            title, route, source, replaces = KERNEL_META[name]
+            kernels.append(dict(
+                name=title, route=route, source=source, replaces=replaces,
+                launches=counts[name], launches_per_step=per_step[name],
+                max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+                shape=r["shape"],
+            ))
+        print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

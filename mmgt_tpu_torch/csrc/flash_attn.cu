@@ -40,29 +40,20 @@ struct FlashParams {
   long long kb_ss, kb_sh, vb_ss, vb_sh, o_sb, o_ss, o_sh;
   int B, H, Sq, Ls, Lb, D;
   float scale;
-  int vec;  // 1: D % 8 == 0 and every row segment is 16-byte aligned
 };
 
 // dst[rows][DP] <- base[r * ss + c] for r < nvalid, c < D; zero elsewhere.
+// 16-byte loads: the wrapper requires D % 8 == 0 and 16-byte aligned rows.
 template <int DP>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* base, long long ss,
-                                          int rows, int nvalid, int D, int vec,
-                                          int tid, int nthreads) {
-  if (vec) {
-    constexpr int VPR = DP / 8;
-    for (int i = tid; i < rows * VPR; i += nthreads) {
-      int r = i / VPR, c = (i % VPR) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < nvalid && c < D) val = *reinterpret_cast<const uint4*>(base + r * ss + c);
-      *reinterpret_cast<uint4*>(dst + r * DP + c) = val;
-    }
-  } else {
-    for (int i = tid; i < rows * DP; i += nthreads) {
-      int r = i / DP, c = i % DP;
-      bf16 val = __float2bfloat16(0.f);
-      if (r < nvalid && c < D) val = base[r * ss + c];
-      dst[i] = val;
-    }
+                                          int rows, int nvalid, int D, int tid,
+                                          int nthreads) {
+  constexpr int VPR = DP / 8;
+  for (int i = tid; i < rows * VPR; i += nthreads) {
+    int r = i / VPR, c = (i % VPR) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < nvalid && c < D) val = *reinterpret_cast<const uint4*>(base + r * ss + c);
+    *reinterpret_cast<uint4*>(dst + r * DP + c) = val;
   }
 }
 
@@ -90,8 +81,8 @@ __global__ void __launch_bounds__(BQ / 16 * 32) flash_fwd(FlashParams p) {
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int nq = min(BQ, p.Sq - q0);
 
-  load_tile<DP>(Qs, p.q + b * p.q_sb + q0 * p.q_ss + h * p.q_sh, p.q_ss, BQ, nq, p.D,
-                p.vec, tid, NT);
+  load_tile<DP>(Qs, p.q + b * p.q_sb + q0 * p.q_ss + h * p.q_sh, p.q_ss, BQ, nq, p.D, tid,
+                NT);
   for (int i = tid; i < BQ * DP; i += NT) Os[i] = 0.f;
   for (int i = tid; i < BQ; i += NT) { Ms[i] = kNeg; Ls[i] = 0.f; }
 
@@ -113,8 +104,8 @@ __global__ void __launch_bounds__(BQ / 16 * 32) flash_fwd(FlashParams p) {
     for (int k0 = 0; k0 < n; k0 += BK) {
       const int nk = min(BK, n - k0);
       __syncthreads();  // every warp is done with the previous K/V tile
-      load_tile<DP>(Ks, kbase + k0 * kss, kss, BK, nk, p.D, p.vec, tid, NT);
-      load_tile<DP>(Vs, vbase + k0 * vss, vss, BK, nk, p.D, p.vec, tid, NT);
+      load_tile<DP>(Ks, kbase + k0 * kss, kss, BK, nk, p.D, tid, NT);
+      load_tile<DP>(Vs, vbase + k0 * vss, vss, BK, nk, p.D, tid, NT);
       __syncthreads();
 
       // S = Q K^T for this warp's 16 query rows
@@ -227,7 +218,7 @@ extern "C" int mmgt_flash_attn(
     long long v_sb, long long v_ss, long long v_sh,
     long long kb_ss, long long kb_sh, long long vb_ss, long long vb_sh,
     long long o_sb, long long o_ss, long long o_sh,
-    int B, int H, int Sq, int Ls, int Lb, int D, float scale, int vec, void* stream) {
+    int B, int H, int Sq, int Ls, int Lb, int D, float scale, void* stream) {
   FlashParams p;
   p.q = (const bf16*)q; p.k = (const bf16*)k; p.v = (const bf16*)v;
   p.kb = (const bf16*)kb; p.vb = (const bf16*)vb;
@@ -238,18 +229,16 @@ extern "C" int mmgt_flash_attn(
   p.kb_ss = kb_ss; p.kb_sh = kb_sh; p.vb_ss = vb_ss; p.vb_sh = vb_sh;
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   p.B = B; p.H = H; p.Sq = Sq; p.Ls = Ls; p.Lb = Lb; p.D = D;
-  p.scale = scale; p.vec = vec;
+  p.scale = scale;
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   if (B > 65535 || H > 65535) return (int)cudaErrorInvalidConfiguration;
-  if (D <= 16) return launch<16, 64, 64>(p, st);
-  if (D <= 32) return launch<32, 64, 64>(p, st);
+  // the path's head dims: 40 -> 48, 80 -> 96, 160, 512 (VAE); a smaller d
+  // runs zero-padded in the next instantiation up
+  if (D % 8 != 0) return (int)cudaErrorInvalidValue;
   if (D <= 48) return launch<48, 64, 64>(p, st);
-  if (D <= 64) return launch<64, 64, 64>(p, st);
   if (D <= 96) return launch<96, 64, 64>(p, st);
-  if (D <= 128) return launch<128, 64, 64>(p, st);
   if (D <= 160) return launch<160, 64, 64>(p, st);
-  if (D <= 256) return launch<256, 64, 64>(p, st);
   if (D <= 512) return launch<512, 32, 32>(p, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -36,7 +36,7 @@ VP, INT, FLT, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longl
 # would otherwise pass them as 32-bit ints and cut them)
 SIGNATURES = {
     "flash_attn": {
-        "mmgt_flash_attn": [VP] * 8 + [LL] * 16 + [INT] * 6 + [FLT, INT, VP],
+        "mmgt_flash_attn": [VP] * 8 + [LL] * 16 + [INT] * 6 + [FLT, VP],
     },
     "ln_proj": {
         "mmgt_ln_stats": [VP, VP, INT, INT, FLT, VP],

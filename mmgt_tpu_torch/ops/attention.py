@@ -78,8 +78,12 @@ def _launch(q, k, v, kv_lens, k_bank, v_bank, scale, return_lse):
         raise ValueError("self K/V must match the query batch")
     if k_bank is not None and (k_bank.shape[0] != 1 or v_bank.shape[:2] != k_bank.shape[:2]):
         raise ValueError("the bank is batch 1, shared by every row")
-    if d > 512:
-        raise ValueError(f"K1 takes head_dim <= 512, got {d}")
+    if d > 512 or d % 8:
+        raise ValueError(f"K1 takes a head_dim <= 512 and a multiple of 8, got {d}")
+    for t in tensors:  # the kernel loads 16-byte vectors
+        if t.data_ptr() % 16 or any(st % 8 for st, n in zip(t.stride()[:3], t.shape[:3])
+                                    if n > 1):
+            raise ValueError("K1 takes 16-byte aligned tensors with strides a multiple of 8")
     lens = None
     if kv_lens is not None:
         lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
@@ -87,11 +91,6 @@ def _launch(q, k, v, kv_lens, k_bank, v_bank, scale, return_lse):
             raise ValueError(f"kv_lens must be ({b},)")
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
-    vec = int(
-        d % 8 == 0
-        and all(t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
-                for t in tensors)
-    )
     kb = k_bank if k_bank is not None else k
     vb = v_bank if v_bank is not None else v
     lib = _build.load("flash_attn")
@@ -103,7 +102,7 @@ def _launch(q, k, v, kv_lens, k_bank, v_bank, scale, return_lse):
         v.stride(0), v.stride(1), v.stride(2),
         kb.stride(1), kb.stride(2), vb.stride(1), vb.stride(2),
         o.stride(0), o.stride(1), o.stride(2),
-        b, h, sq, ls, lb, d, float(scale), vec, _build.stream_ptr(q),
+        b, h, sq, ls, lb, d, float(scale), _build.stream_ptr(q),
     )
     _build.check(lib, rc, "flash attention (K1)")
     LAUNCHES += 1

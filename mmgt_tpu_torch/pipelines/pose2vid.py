@@ -39,6 +39,7 @@ from mmgt_tpu_torch.models.unet3d import DenoisingUNet3D, precompute_bank_kv
 from mmgt_tpu_torch.models.unet_ref import ReferenceUNet2D
 from mmgt_tpu_torch.models.vae import AutoencoderKL
 from mmgt_tpu_torch.nn.layers import GroupNorm, LayerNorm
+from mmgt_tpu_torch.ops import launch_counts
 from mmgt_tpu_torch.pipelines.context import compute_context_schedule
 
 MODEL_NAMES = ("vae", "reference_unet", "denoising_unet", "pose_guider", "audio_proj")
@@ -65,7 +66,8 @@ class Pose2VideoPipeline:
     # windows per UNet call; None = all windows at once
     window_microbatch: Optional[int] = None
     output_uint8: bool = False
-    # synchronise after each phase and fill self.timings with its seconds
+    # synchronise after each phase; fill self.timings with its seconds and
+    # self.phase_launches with the kernel launches it made
     profile_phases: bool = False
 
     @classmethod
@@ -156,21 +158,26 @@ class Pose2VideoPipeline:
             compute_context_schedule(num_inference_steps, f, self.context_size, 1,
                                      self.context_overlap), dtype=torch.long, device=dev)
         self.timings: Dict[str, float] = {}
+        self.phase_launches: Dict[str, Dict[str, int]] = {}
+        self._launches_at = launch_counts()
         t0 = time.perf_counter()
         cond, latents = self._prepare(move(ref_image), move(pose_video), move(clip_embed),
                                       masks, move(audio_embeds), generator)
-        t0 = self._phase("prepare_s", t0)
+        t0 = self._phase("prepare", t0)
         latents, _ = self._denoise_chunk(latents, init_solver_carry(latents), cond, tables,
                                          windows, guidance_scale, tuple(motion_scale))
-        t0 = self._phase("denoise_s", t0)
+        t0 = self._phase("denoise", t0)
         frames = self._decode(latents)
-        self._phase("decode_s", t0)
+        self._phase("decode", t0)
         return frames
 
     def _phase(self, name: str, t0: float) -> float:
         if self.profile_phases:
             self._sync()
-            self.timings[name] = time.perf_counter() - t0
+            self.timings[f"{name}_s"] = time.perf_counter() - t0
+            counts = launch_counts()
+            self.phase_launches[name] = {k: n - self._launches_at[k] for k, n in counts.items()}
+            self._launches_at = counts
         return time.perf_counter()
 
     @torch.no_grad()

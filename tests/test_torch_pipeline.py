@@ -184,13 +184,16 @@ def test_window_microbatch_splits_the_same_work():
 @torch.no_grad()
 def test_pipeline_call_on_cpu_returns_frames():
     """The public entry point, asked for the CPU: (1, F, H, W, 3) frames in
-    [0, 1], or uint8, and the phase timings."""
+    [0, 1], or uint8, the phase timings, and no kernel launch (CPU tensors
+    take the plain versions)."""
     pipe = _random_port_pipeline(profile_phases=True)
     gen = torch.Generator().manual_seed(0)
     frames = pipe(**_torch_inputs(), num_inference_steps=2, generator=gen)
     assert frames.shape == (1, F, H, H, 3) and frames.dtype == torch.float32
     assert torch.isfinite(frames).all() and frames.min() >= 0 and frames.max() <= 1
     assert set(pipe.timings) == {"prepare_s", "denoise_s", "decode_s"}
+    assert set(pipe.phase_launches) == {"prepare", "denoise", "decode"}
+    assert all(n == 0 for d in pipe.phase_launches.values() for n in d.values())
     pipe.output_uint8 = True
     frames8 = pipe(**_torch_inputs(), num_inference_steps=2,
                    generator=torch.Generator().manual_seed(0))
