@@ -7,28 +7,45 @@ Phases, in order; any failure exits non-zero:
   1. build: compile the CUDA kernels (one nvcc per source, started
      together) and print the build seconds and the card's name and power
      limit;
-  2. kernels: hold every kernel (K1-K4) against its plain PyTorch version
+  2. kernels: hold every kernel (K1-K5) against its plain PyTorch version
      on the card, in bf16, at the main path's per-row shapes; print each
      one's error and tolerance, its time (CUDA events), the plain version's
      time, one PyTorch library call's time where one computes the same
      function, and the bound (the larger of flops / 989 TFLOP/s and bytes /
-     3.35 TB/s, each input read once and each output written once);
-  3. main: Pose2VideoPipeline at full SD1.5 width, 512x512, 16 frames (two
+     3.35 TB/s, each input read once and each output written once); K1 and
+     K2 are also timed at the shapes of each JAX function they replace;
+  3. gradients: the autograd Functions of K1-K4 on the card against
+     autograd through their plain versions, at small shapes;
+  4. main: Pose2VideoPipeline at full SD1.5 width, 512x512, 16 frames (two
      12-frame windows overlapping by 4), 3 DDIM steps, guidance 3.5, seeded
      random weights and inputs; the frames must be finite and every
-     kernel's launch counter must have risen during this phase; launches
-     per denoise step are the pipeline's own denoise-phase count / STEPS;
-  4. small: a tiny pipeline (64x64, 8 frames, 2 steps, CFG) with one set of
+     inference kernel's launch counter (K1-K4) must have risen during this
+     phase, K5's not; launches per denoise step are the pipeline's own
+     denoise-phase count / STEPS;
+  5. small: a tiny pipeline (64x64, 8 frames, 2 steps, CFG) with one set of
      weights run three ways: f32 on the CPU (the reference), bf16 on the
      CPU (plain versions) and bf16 on the card (kernels); the card's mean
      error against the reference must stay within SMALL_ERR_FACTOR x the
-     plain bf16 error, for the latents and the decoded frames.
+     plain bf16 error, for the latents and the decoded frames;
+  6. train: Stage2Trainer at full width, 512x512, 12 frames, batch 1,
+     remat, TRAIN_STEPS steps on a seeded random batch: finite losses, the
+     f32 masters of every trainable tensor moved, every frozen tensor
+     bitwise unchanged, K5 launched EXPECTED_K5_PER_STEP times in every
+     step and K1-K4 at least once (the counts include the checkpointed
+     recompute), the seconds of the steps after the first and the peak
+     memory;
+  7. train_small: a tiny trainer (the small pipeline's sizes, no remat) with
+     one set of weights and draws, three ways as in 5; the loss and the
+     flattened trainable gradients against CPU f32, the card's mean error
+     within SMALL_ERR_FACTOR x the plain bf16 error.
 Then the `kernels` JSON line, the card line, and the result line.
 
-    python3 chip_smoke.py profile    # build, then profile one denoise step
+    python3 chip_smoke.py profile    # build, then profile a denoise step
+                                     # and a train step
 
-profiles one full-width denoise step instead (device time by kernel
-family, idle share) and prints no `kernels` line.
+profiles one full-width denoise step and one full-width train step
+instead (device time by kernel family, idle share) and prints no
+`kernels` line.
 This script imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -50,6 +67,12 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # the small pipeline's card error may reach this multiple of plain bf16's
 # (chip readings so far: 1.08x on the latents, 1.15x on the frames)
 SMALL_ERR_FACTOR = 1.5
+TRAIN_STEPS = 3
+TRAIN_FRAMES = 12
+# the denoiser's 16 bank self-attentions less down_0_attn_0 (nothing
+# upstream of it is trained), plus the 6 self-attentions of the trained
+# audio blocks
+EXPECTED_K5_PER_STEP = 21
 
 
 def log(*a):
@@ -105,22 +128,37 @@ def require(ok: bool, what: str):
 
 
 # ---------------------------------------------------------------- kernels
+def time_row(fn, plain, lib, flops, nb, shape, plain_iters=3):
+    """Kernel, plain and library times and the bound of one call."""
+    ms = time_ms(fn)
+    plain_ms = time_ms(plain, iters=plain_iters, warmup=1)
+    lib_ms = None if lib is None else time_ms(lib)
+    bms, by = bound_ms(flops, nb)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                shape=shape)
+
+
 def check_k1(torch, A):
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(SEED)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
-    cases = [  # (name, batch, seq, heads, d, bank, kv_lens, lse)
-        ("L0 bank mixed kv_lens + lse", 2, 4096, 8, 40, True, [4096, 8192], True),
-        ("L0 self only (ReferenceNet)", 1, 4096, 8, 40, False, None, False),
-        ("L1 bank", 2, 1024, 8, 80, True, [1024, 2048], False),
-        ("L2 bank", 2, 256, 8, 160, True, [256, 512], True),
-        ("L3 bank", 2, 64, 8, 160, True, [64, 128], False),
-        ("VAE mid d=512", 1, 4096, 1, 512, False, None, False),
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = [  # (name, batch, q seq, self kv seq, heads, d, bank, kv_lens, lse, timed as)
+        ("L0 bank mixed kv_lens + lse", 2, 4096, 4096, 8, 40, True, [4096, 8192], True,
+         "_flash_attention_packed_2seg_fwd"),
+        ("L0 self only (ReferenceNet)", 1, 4096, 4096, 8, 40, False, None, False,
+         "_flash_attention_packed_fwd"),
+        ("L0 concat + lse (training)", 2, 4096, 8192, 8, 40, False, [4096, 8192], True,
+         "_flash_attention_fwd_lse"),
+        ("L1 bank", 2, 1024, 1024, 8, 80, True, [1024, 2048], False, None),
+        ("L2 bank", 2, 256, 256, 8, 160, True, [256, 512], True, None),
+        ("L3 bank", 2, 64, 64, 8, 160, True, [64, 128], False, None),
+        ("VAE mid d=512", 1, 4096, 4096, 1, 512, False, None, False, "_flash_attention"),
     ]
     tol_lse = 1e-3
-    rec = None
-    for name, b, s, h, d, bank, lens, lse in cases:
-        q, k, v = rnd(b, s, h, d), rnd(b, s, h, d), rnd(b, s, h, d)
+    rec, rows = None, {}
+    for name, b, s, skv, h, d, bank, lens, lse, timed in cases:
+        q, k, v = rnd(b, s, h, d), rnd(b, skv, h, d), rnd(b, skv, h, d)
         kb = rnd(1, s, h, d) if bank else None
         vb = rnd(1, s, h, d) if bank else None
         kl = torch.tensor(lens, dtype=torch.int32, device=dev) if lens else None
@@ -133,32 +171,36 @@ def check_k1(torch, A):
         err, tol = max_err(got, want), ulp_tol(want)
         log(f"K1 {name}: max_abs_err {err:.3e} (tol {tol:.3e}, 2 bf16 ulps)")
         require(math.isfinite(err) and err <= tol, f"K1 {name}: err {err} > {tol}")
-        if rec is None:  # time the hottest shape: the denoiser's level-0 bank attention
-            ms = time_ms(lambda: A.flash_attention(q, k, v, kl, kb, vb, return_lse=lse))
-            plain_ms = time_ms(lambda: A.attention_plain(q, k, v, kl, kb, vb, return_lse=lse),
-                               iters=3, warmup=1)
-            kc = torch.cat([k, kb.expand(b, -1, -1, -1)], 1).transpose(1, 2)
-            vc = torch.cat([v, vb.expand(b, -1, -1, -1)], 1).transpose(1, 2)
-            qt = q.transpose(1, 2)
-            mask = (torch.arange(2 * s, device=dev)[None, :] < kl[:, None])[:, None, None, :]
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            lib_ms = time_ms(lambda: sdpa(qt, kc, vc, attn_mask=mask))
-            valid = sum(lens)
-            flops = 4.0 * h * d * s * valid
-            bms, by = bound_ms(flops, nbytes(q, k, v, kb, vb, got, got_lse if lse else None))
-            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=bms, bound_by=by, shape=f"{name}: q {tuple(q.shape)}")
+        if timed is None:
+            continue
+        kc = k if kb is None else torch.cat([k, kb.expand(b, -1, -1, -1)], 1)
+        vc = v if vb is None else torch.cat([v, vb.expand(b, -1, -1, -1)], 1)
+        mask = None
+        if kl is not None:
+            mask = (torch.arange(kc.shape[1], device=dev)[None, :] < kl[:, None])[:, None, None, :]
+        qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+        valid = sum(lens) if lens else b * kc.shape[1]
+        row = time_row(
+            lambda: A.flash_attention(q, k, v, kl, kb, vb, return_lse=lse),
+            lambda: A.attention_plain(q, k, v, kl, kb, vb, return_lse=lse),
+            lambda: sdpa(qt, kt, vt, attn_mask=mask), 4.0 * h * d * s * valid,
+            nbytes(q, k, v, kb, vb, got, got_lse if lse else None),
+            f"{name}: q {tuple(q.shape)}, K/V {tuple(kc.shape)}")
+        row["max_abs_err"] = err
+        rows[timed] = row
+        if rec is None:  # the hottest shape: the denoiser's level-0 bank attention
+            rec = dict(row, rows=rows)
     return rec
 
 
 def check_k2(torch, N):
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    rec = None
-    for name, shape, groups, act in [
-        ("UNet L0 (48 rows)", (48, 4096, 320), 32, "silu"),
-        ("UNet L3 no act", (48, 64, 1280), 32, None),
-        ("VAE decoder row", (8, 512 * 512, 128), 32, "silu"),
+    rec, rows = None, {}
+    for name, shape, groups, act, timed in [
+        ("UNet L0 (48 rows)", (48, 4096, 320), 32, "silu", "_group_norm_pallas"),
+        ("UNet L3 no act", (48, 64, 1280), 32, None, None),
+        ("VAE decoder row", (8, 512 * 512, 128), 32, "silu", "_group_norm_pallas_blocked"),
     ]:
         c = shape[-1]
         # every group its own mean and every channel its own scale, so a
@@ -173,15 +215,21 @@ def check_k2(torch, N):
         err, tol = max_err(got, want), ulp_tol(want)
         log(f"K2 {name}: max_abs_err {err:.3e} (tol {tol:.3e}, 2 bf16 ulps)")
         require(math.isfinite(err) and err <= tol, f"K2 {name}: err {err} > {tol}")
+        if timed is None:
+            continue
+        xt = x.transpose(1, 2)
+        F = torch.nn.functional
+        row = time_row(
+            lambda: N.group_norm(x, groups, w, b, 1e-6, act),
+            lambda: N.group_norm_plain(x, groups, w, b, 1e-6, act),
+            lambda: F.silu(F.group_norm(xt, groups, w, b, 1e-6)), 10.0 * x.numel(),
+            nbytes(x, w, b, got), f"{name}: x {shape}")
+        row["max_abs_err"] = err
+        rows[timed] = row
         if rec is None:
-            ms = time_ms(lambda: N.group_norm(x, groups, w, b, 1e-6, act))
-            plain_ms = time_ms(lambda: N.group_norm_plain(x, groups, w, b, 1e-6, act), iters=3)
-            xt = x.transpose(1, 2)
-            F = torch.nn.functional
-            lib_ms = time_ms(lambda: F.silu(F.group_norm(xt, groups, w, b, 1e-6)))
-            bms, by = bound_ms(10.0 * x.numel(), nbytes(x, w, b, got))
-            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=bms, bound_by=by, shape=f"{name}: x {shape}")
+            rec = dict(row, rows=rows)
+        del x, got, want
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -252,6 +300,115 @@ def check_k4(torch, M):
     return rec
 
 
+def check_k5(torch, A):
+    """K5 against `attention_bwd_plain` (2 rows per shape: at full batch the
+    plain version's f32 P alone would take ~13 GB). Tolerance: 4 bf16 ulps
+    at the largest |value| of each of dq, dk, dv: dk/dv sum thousands of
+    queries in another order than the plain version, and P and dS are
+    rounded to bf16 as product operands."""
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rec = None
+    for name, b, sq, skv, h, d, lens in [  # (name, batch, q seq, kv seq, heads, d, kv_lens)
+        ("L0 bank concat", 2, 4096, 8192, 8, 40, [4096, 8192]),
+        ("L1 bank concat", 2, 1024, 2048, 8, 80, [1024, 2048]),
+        ("L2 bank concat", 2, 256, 512, 8, 160, [256, 512]),
+        ("mid bank concat", 2, 64, 128, 8, 160, [64, 128]),
+        ("L0 audio self-attention", 2, 4096, 4096, 8, 40, None),
+    ]:
+        q, k, v, do = rnd(b, sq, h, d), rnd(b, skv, h, d), rnd(b, skv, h, d), rnd(b, sq, h, d)
+        kl = torch.tensor(lens, dtype=torch.int32, device=dev) if lens else None
+        o, lse = A.flash_attention(q, k, v, kl, return_lse=True)
+        got = A.flash_attention_bwd(q, k, v, o, do, lse, kl)
+        want = A.attention_bwd_plain(q, k, v, o, do, lse, kl)
+        err = 0.0
+        for gname, gg, ww in zip(("dq", "dk", "dv"), got, want):
+            e, tol = max_err(gg, ww), ulp_tol(ww, 4)
+            log(f"K5 {name} {gname}: max_abs_err {e:.3e} (tol {tol:.3e}, 4 bf16 ulps)")
+            require(math.isfinite(e) and e <= tol, f"K5 {name} {gname}: err {e} > {tol}")
+            err = max(err, e)
+        del want
+        if rec is None:  # the hottest shape: level 0 of the denoiser, bank concatenated
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+            dot = do.transpose(1, 2)
+            mask = (torch.arange(skv, device=dev)[None, :] < kl[:, None])[:, None, None, :]
+            fwd = lambda: sdpa(qt, kt, vt, attn_mask=mask)
+            fwd_ms = time_ms(fwd)
+            fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(fwd(), (qt, kt, vt), dot))
+            rec = time_row(
+                lambda: A.flash_attention_bwd(q, k, v, o, do, lse, kl),
+                lambda: A.attention_bwd_plain(q, k, v, o, do, lse, kl), None,
+                10.0 * h * d * sq * sum(lens), nbytes(q, k, v, o, do, lse, *got),
+                f"{name}: q {tuple(q.shape)}, K/V {tuple(k.shape)}, kv_lens {lens}",
+                plain_iters=2)
+            rec.update(max_abs_err=err, library_ms=fwd_bwd_ms - fwd_ms)
+            log(f"K5 SDPA at {rec['shape']}: fwd+bwd {fwd_bwd_ms:.3f} ms, fwd {fwd_ms:.3f} ms")
+        del q, k, v, do, o, lse, got
+        torch.cuda.empty_cache()
+    return rec
+
+
+def check_grads(torch, ops, A, N, L, M):
+    """Each of K1-K4 through its autograd Function on the card (the forward
+    launches the kernel; K1's backward is K5) against autograd through its
+    plain version, at small shapes; 4 bf16 ulps at each gradient's largest
+    |value|."""
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=g, device=dev) * scale).to(
+        torch.bfloat16).requires_grad_(True)
+    c = 320
+    kl = torch.tensor([300, 557], dtype=torch.int32, device=dev)
+    ws = [rnd(c, c, scale=1 / math.sqrt(c)) for _ in range(4)]
+    pe = M.sinusoidal_positions(32, c, dev)[:12]
+    gam, bet = rnd(c, scale=0.1), rnd(c, scale=0.1)
+    cases = [  # (name, kernel counters, kernel call, plain call, inputs)
+        ("K1 bank + kv_lens (bwd: K5)", ("flash_attention", "flash_attention_bwd"),
+         lambda q, k, v, kb, vb: A.flash_attention(q, k, v, kl, kb, vb),
+         lambda q, k, v, kb, vb: A.attention_plain(q, k, v, kl, kb, vb),
+         [rnd(2, 300, 2, 40), rnd(2, 300, 2, 40), rnd(2, 300, 2, 40), rnd(1, 257, 2, 40),
+          rnd(1, 257, 2, 40)]),
+        ("K2 GroupNorm + SiLU", ("group_norm",),
+         lambda x, w, b: N.group_norm(x, 32, w, b, 1e-6, "silu"),
+         lambda x, w, b: N.group_norm_plain(x, 32, w, b, 1e-6, "silu"),
+         [rnd(2, 500, c), rnd(c), rnd(c)]),
+        ("K3 LN -> 3 projections", ("ln_projections",),
+         lambda x, g_, b_, w0, w1, w2: L.ln_projections(x, g_, b_, [w0, w1, w2], [None] * 3),
+         lambda x, g_, b_, w0, w1, w2: L.ln_projections_plain(x, g_, b_, [w0, w1, w2],
+                                                               [None] * 3),
+         [rnd(2, 333, c), gam, bet, *ws[:3]]),
+        ("K4 motion attention", ("motion_attention",),
+         lambda x, g_, b_, wq, wk, wv, wo, bo: M.motion_attention(x, g_, b_, pe, wq, wk, wv,
+                                                                  wo, bo, 8),
+         lambda x, g_, b_, wq, wk, wv, wo, bo: M.motion_attention_plain(x, g_, b_, pe, wq, wk,
+                                                                        wv, wo, bo, 8),
+         [rnd(2, 12, 200, c), gam, bet, *ws, rnd(c, scale=0.1)]),
+    ]
+    for name, counters, kernel, plain, inputs in cases:
+        before = ops.launch_counts()
+        outs = kernel(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        cots = [torch.randn(o.shape, generator=g, device=dev).to(o.dtype) for o in outs]
+        got = torch.autograd.grad(outs, inputs, cots)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        for cn in counters:
+            require(after[cn] > before[cn], f"{name}: {cn} did not launch")
+        want_outs = plain(*inputs)
+        want_outs = want_outs if isinstance(want_outs, tuple) else (want_outs,)
+        want = torch.autograd.grad(want_outs, inputs, cots)
+        errs = []
+        for i, (a, b_) in enumerate(zip(got, want)):
+            require(a is not None, f"{name}: input {i} has no gradient")
+            e, tol = max_err(a, b_), ulp_tol(b_, 4)
+            require(math.isfinite(e) and e <= tol, f"{name}: grad {i} err {e} > {tol}")
+            errs.append(e / max(tol, 1e-30))
+        log(f"grads {name}: {len(got)} gradients, worst err / tol {max(errs):.3f} "
+            f"(tol: 4 bf16 ulps of each gradient)")
+
+
 # ---------------------------------------------------------------- pipeline
 def make_inputs(torch, frames: int, size: int, seed: int):
     g = torch.Generator().manual_seed(seed)
@@ -284,7 +441,10 @@ def run_main(torch, ops, Pose2VideoPipeline):
     require(tuple(frames.shape) == (1, FRAMES, SIZE, SIZE, 3), f"frame shape {frames.shape}")
     require(bool(torch.isfinite(frames).all()), "frames are not finite")
     for name, n in counts.items():
-        require(n > 0, f"kernel {name} was not launched on the main path")
+        if name in INFERENCE_KERNELS:
+            require(n > 0, f"kernel {name} was not launched on the main path")
+        else:
+            require(n == 0, f"kernel {name} launched under no_grad")
     t = pipe.timings
     log(f"main: prepare_s {t['prepare_s']:.3f} denoise_s {t['denoise_s']:.3f} "
         f"decode_s {t['decode_s']:.3f} max_memory_allocated "
@@ -328,6 +488,14 @@ def run_profile(torch, Pose2VideoPipeline):
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step()
+    report_profile(prof, "one denoise step, 2 windows x CFG = 48 frame rows, 512x512",
+                   wall_ms)
+    del pipe, cond, lat
+    torch.cuda.empty_cache()
+
+
+def report_profile(prof, what: str, wall_ms: float):
+    """Device time by kernel and family, and the idle share of `wall_ms`."""
     from torch.autograd import DeviceType
 
     rows = []
@@ -346,7 +514,7 @@ def run_profile(torch, Pose2VideoPipeline):
         families[fam] = families.get(fam, 0.0) + ms
     busy = sum(r[0] for r in rows)
     log(json.dumps({"profile": {
-        "what": "one denoise step, 2 windows x CFG = 48 frame rows, 512x512",
+        "what": what,
         "wall_ms_unprofiled": wall_ms, "device_busy_ms": busy,
         "idle_share": max(0.0, 1.0 - busy / wall_ms),
         "families_ms": {k: round(v, 3) for k, v in sorted(families.items(), key=lambda x: -x[1])},
@@ -356,6 +524,7 @@ def run_profile(torch, Pose2VideoPipeline):
 
 PROFILE_FAMILIES = (
     ("K1 flash_fwd", ("flash_fwd",)),
+    ("K5 bwd_dsum + bwd_dq + bwd_dkv", ("bwd_dsum", "bwd_dq", "bwd_dkv")),
     ("K2 gn_*", ("gn_partial", "gn_stats", "gn_apply")),
     ("K3/K4 ln_gemm + ln_stats", ("ln_gemm", "ln_stats")),
     ("K4 frame_attn", ("frame_attn",)),
@@ -367,27 +536,9 @@ PROFILE_FAMILIES = (
 def run_small(torch, Pose2VideoPipeline):
     """Tiny pipeline: card (bf16, kernels) vs CPU (f32, plain versions)."""
     from mmgt_tpu_torch.diffusion.solver import init_solver_carry, solver_tables_for
-    from mmgt_tpu_torch.models.audio_proj import AudioProjModel
-    from mmgt_tpu_torch.models.pose_guider import PoseGuider
-    from mmgt_tpu_torch.models.unet3d import DenoisingUNet3D
-    from mmgt_tpu_torch.models.unet_ref import ReferenceUNet2D
-    from mmgt_tpu_torch.models.vae import AutoencoderKL
     from mmgt_tpu_torch.pipelines.context import compute_context_schedule
 
-    def tiny(device, dtype):
-        torch.manual_seed(SEED)
-        kw = dict(block_out_channels=(64, 128, 128, 128), heads=2)
-        pipe = Pose2VideoPipeline(
-            vae=AutoencoderKL(block_out_channels=(32, 32, 64, 64)),
-            reference_unet=ReferenceUNet2D(**kw), denoising_unet=DenoisingUNet3D(**kw),
-            pose_guider=PoseGuider(64, (8, 16, 16, 32)),
-            audio_proj=AudioProjModel(intermediate_dim=64), context_size=6,
-            context_overlap=2)
-        for m in pipe.models().values():
-            m.to(device=device, dtype=dtype)
-        pipe.init_params(SEED, std=0.05)
-        return pipe
-
+    tiny = lambda dev, dtype: tiny_pipeline(torch, Pose2VideoPipeline, dev, dtype)
     ref = tiny("cpu", torch.float32)
     runs = {"cpu_f32": (ref, "cpu"), "cpu_bf16": (tiny("cpu", torch.bfloat16), "cpu"),
             "card_bf16": (tiny("cuda", torch.bfloat16), "cuda")}
@@ -424,6 +575,175 @@ def run_small(torch, Pose2VideoPipeline):
                 f"the plain bf16 error")
 
 
+# ---------------------------------------------------------------- training
+def make_train_batch(torch, b: int, frames: int, size: int, seed: int, device="cpu"):
+    """A seeded random Stage-2 batch, so that the loss is not trivially 0."""
+    g = torch.Generator().manual_seed(seed)
+    h8 = size // 8
+    rand = lambda *s: torch.rand(*s, generator=g)
+    batch = dict(
+        pixel_values=rand(b, frames, size, size, 3) * 2 - 1,
+        ref_image=rand(b, size, size, 3) * 2 - 1,
+        clip_embed=torch.randn(b, 1, 768, generator=g),
+        audio_embeds=torch.randn(b, frames, 5, 12, 768, generator=g),
+        pose_video=rand(b, frames, size, size, 3),
+        masks=[tuple((rand(b, frames, (h8 >> lv) ** 2) > 0.4).float() for _ in range(3))
+               for lv in range(3)],
+    )
+    return {k: ([tuple(m.to(device) for m in lv) for lv in v] if k == "masks"
+                else v.to(device)) for k, v in batch.items()}
+
+
+def run_train(torch, ops, Stage2Trainer):
+    """Full-width Stage-2 training steps on the card."""
+    t0 = time.perf_counter()
+    trainer = Stage2Trainer.build(torch.bfloat16, device="cuda", seed=SEED, remat=True)
+    state = trainer.init_state()
+    from mmgt_tpu_torch.training.stage2 import partition_params
+
+    _, frozen = partition_params(trainer.pipeline)
+    n_train = sum(p.numel() for p in state.trainable.values())
+    n_frozen = sum(p.numel() for p in frozen.values())
+    torch.cuda.synchronize()
+    log(f"train: build + init_params + init_state {time.perf_counter() - t0:.1f} s; "
+        f"{len(state.trainable)} trainable tensors ({n_train / 1e6:.1f} M), "
+        f"{len(frozen)} frozen ({n_frozen / 1e6:.1f} M)")
+    batch = make_train_batch(torch, 1, TRAIN_FRAMES, SIZE, SEED + 9, "cuda")
+    frozen0 = {n: p.detach().clone() for n, p in frozen.items()}
+    masters0 = {n: m.clone() for n, m in state.masters.items()}
+    working0 = {n: p.detach().clone() for n, p in state.trainable.items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    steps, per_step = [], []
+    for i in range(TRAIN_STEPS):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        loss, mse = float(metrics["loss"]), float(metrics["mse"])
+        log(f"train: step {i} loss {loss:.6f} mse {mse:.6f} {sec:.3f} s launches "
+            + json.dumps(counts))
+        require(math.isfinite(loss) and math.isfinite(mse), f"train step {i}: loss not finite")
+        require(counts["flash_attention_bwd"] == EXPECTED_K5_PER_STEP,
+                f"train step {i}: K5 launched {counts['flash_attention_bwd']} times, "
+                f"expected {EXPECTED_K5_PER_STEP}")
+        for name in INFERENCE_KERNELS:
+            require(counts[name] > 0, f"train step {i}: {name} was not launched")
+        steps.append(sec)
+        per_step.append(counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = [n for n, m in state.masters.items() if not torch.equal(m, masters0[n])]
+    require(len(moved) == len(state.masters),
+            f"{len(state.masters) - len(moved)} trainable f32 masters did not move")
+    w_moved = sum(not torch.equal(p, working0[n]) for n, p in state.trainable.items())
+    require(w_moved > 0, "no bf16 working weight changed")
+    changed = [n for n, p in frozen.items() if not torch.equal(p, frozen0[n])]
+    require(not changed, f"frozen tensors changed: {changed[:3]}")
+    later = steps[1:]
+    log(f"train: seconds per step after the first {later} (mean "
+        f"{sum(later) / len(later):.3f}); first {steps[0]:.3f}; max_memory_allocated "
+        f"{peak:.2f} GiB; f32 masters moved {len(moved)}/{len(state.masters)}, bf16 working "
+        f"tensors changed {w_moved}/{len(state.trainable)}, frozen tensors unchanged "
+        f"{len(frozen)}/{len(frozen)}")
+    total = {k: sum(c[k] for c in per_step) for k in per_step[0]}
+    del trainer, state, frozen, frozen0, masters0, working0, batch
+    torch.cuda.empty_cache()
+    return total, {k: n / TRAIN_STEPS for k, n in total.items()}
+
+
+def tiny_pipeline(torch, Pose2VideoPipeline, device, dtype):
+    """The small pipeline's models (64..128 channels, 2 heads) with seeded
+    weights."""
+    from mmgt_tpu_torch.models.audio_proj import AudioProjModel
+    from mmgt_tpu_torch.models.pose_guider import PoseGuider
+    from mmgt_tpu_torch.models.unet3d import DenoisingUNet3D
+    from mmgt_tpu_torch.models.unet_ref import ReferenceUNet2D
+    from mmgt_tpu_torch.models.vae import AutoencoderKL
+
+    torch.manual_seed(SEED)
+    kw = dict(block_out_channels=(64, 128, 128, 128), heads=2)
+    pipe = Pose2VideoPipeline(
+        vae=AutoencoderKL(block_out_channels=(32, 32, 64, 64)),
+        reference_unet=ReferenceUNet2D(**kw), denoising_unet=DenoisingUNet3D(**kw),
+        pose_guider=PoseGuider(64, (8, 16, 16, 32)),
+        audio_proj=AudioProjModel(intermediate_dim=64), context_size=6,
+        context_overlap=2)
+    for m in pipe.models().values():
+        m.to(device=device, dtype=dtype)
+    pipe.init_params(SEED, std=0.05)
+    return pipe
+
+
+def run_train_small(torch, Pose2VideoPipeline, Stage2Trainer):
+    """Tiny trainer, no remat (K3's and K4's Functions carry the gradients
+    directly): card (bf16, kernels) vs CPU (f32, plain versions)."""
+    ref = tiny_pipeline(torch, Pose2VideoPipeline, "cpu", torch.float32)
+    runs = {"cpu_f32": ref, "cpu_bf16": tiny_pipeline(torch, Pose2VideoPipeline, "cpu",
+                                                      torch.bfloat16),
+            "card_bf16": tiny_pipeline(torch, Pose2VideoPipeline, "cuda", torch.bfloat16)}
+    for pipe in runs.values():
+        if pipe is not ref:
+            for name, m in ref.models().items():
+                getattr(pipe, name).load_state_dict(m.state_dict())
+    b, frames, size = 2, 4, 64
+    batch = make_train_batch(torch, b, frames, size, SEED + 10)
+    draws = Stage2Trainer(ref).draws(b, frames, size // 8, size // 8,
+                                     torch.Generator().manual_seed(SEED + 11))
+    draws["keep_img"] = torch.tensor([True, False])   # one row without the bank
+    draws["keep_aud"] = torch.tensor([False, True])   # one row without audio
+    out = {}
+    for tag, pipe in runs.items():
+        trainer = Stage2Trainer(pipe)
+        state = trainer.init_state()
+        loss, _ = trainer.loss_fn(batch, draws)
+        grads = torch.autograd.grad(loss, list(state.trainable.values()))
+        out[tag] = (loss.item(), torch.cat([g.float().cpu().reshape(-1) for g in grads]))
+    f32_loss, f32_g = out["cpu_f32"]
+    errs = {tag: (abs(out[tag][0] - f32_loss), (out[tag][1] - f32_g).abs().mean().item())
+            for tag in ("cpu_bf16", "card_bf16")}
+    log(f"train_small: loss cpu_f32 {f32_loss:.6f} cpu_bf16 {out['cpu_bf16'][0]:.6f} "
+        f"card_bf16 {out['card_bf16'][0]:.6f}; |loss err|, mean |grad err| vs CPU f32 "
+        f"(mean |grad| {f32_g.abs().mean().item():.3e}): plain bf16 on the CPU "
+        f"{errs['cpu_bf16']}, kernels bf16 on the card {errs['card_bf16']} "
+        f"(tol: {SMALL_ERR_FACTOR}x the plain bf16 error; the loss's floored at one bf16 "
+        f"ulp of the loss)")
+    require(all(math.isfinite(v[0]) and bool(torch.isfinite(v[1]).all()) for v in out.values()),
+            "train_small: loss or gradients not finite")
+    loss_floor = max(errs["cpu_bf16"][0], 2.0 ** -8 * abs(f32_loss))
+    require(errs["card_bf16"][0] <= SMALL_ERR_FACTOR * loss_floor,
+            "train_small: the card's loss error exceeds the bound")
+    require(errs["card_bf16"][1] <= SMALL_ERR_FACTOR * errs["cpu_bf16"][1],
+            "train_small: the card's gradient error exceeds "
+            f"{SMALL_ERR_FACTOR}x the plain bf16 error")
+
+
+def run_profile_train(torch, Stage2Trainer):
+    """One full-width train step under torch.profiler (after a warm-up
+    step): device time by kernel family and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = Stage2Trainer.build(torch.bfloat16, device="cuda", seed=SEED, remat=True)
+    state = trainer.init_state()
+    batch = make_train_batch(torch, 1, TRAIN_FRAMES, SIZE, SEED + 9, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def step():
+        trainer.train_step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+
+    step()
+    t0 = time.perf_counter()
+    step()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+    report_profile(prof, "one train step: 12 frames, bs 1, 512x512, remat", wall_ms)
+
+
+INFERENCE_KERNELS = ("flash_attention", "group_norm", "ln_projections", "motion_attention")
 KERNEL_META = {
     "flash_attention": ("K1 flash attention (two-segment, kv_lens, LSE)", "cuda",
                         "mmgt_tpu_torch/csrc/flash_attn.cu",
@@ -437,6 +757,10 @@ KERNEL_META = {
     "motion_attention": ("K4 motion (frame) attention", "cuda",
                          "mmgt_tpu_torch/csrc/motion_attn.cu",
                          "mmgt_tpu/ops/motion_attention.py:122 _motion_fwd"),
+    "flash_attention_bwd": ("K5 flash attention backward (dq, dk/dv)", "cuda",
+                            "mmgt_tpu_torch/csrc/flash_attn_bwd.cu",
+                            "mmgt_tpu/ops/attention.py:376 _flash_attention_bwd "
+                            "(pallas_call :411 dq, :434 dk/dv)"),
 }
 
 
@@ -454,6 +778,7 @@ def main(argv) -> int:
     from mmgt_tpu_torch.ops import motion_attention as M
     from mmgt_tpu_torch.ops import norms as N
     from mmgt_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline
+    from mmgt_tpu_torch.training.stage2 import Stage2Trainer
 
     if argv not in ([], ["profile"]):
         print("usage: python3 chip_smoke.py [profile]", file=sys.stderr)
@@ -469,25 +794,44 @@ def main(argv) -> int:
 
     if argv:
         run_profile(torch, Pose2VideoPipeline)
+        run_profile_train(torch, Stage2Trainer)
     else:
+        t0 = time.perf_counter()
         recs = {"flash_attention": check_k1(torch, A), "group_norm": check_k2(torch, N),
-                "ln_projections": check_k3(torch, L), "motion_attention": check_k4(torch, M)}
+                "ln_projections": check_k3(torch, L), "motion_attention": check_k4(torch, M),
+                "flash_attention_bwd": check_k5(torch, A)}
         for name, r in recs.items():
-            log(f"{name}: ms {r['ms']:.3f} plain_ms {r['plain_ms']:.3f} library_ms "
-                f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 3)} "
-                f"bound_ms {r['bound_ms']:.3f} ({r['bound_by']}) at {r['shape']}")
+            for row_name, row in (r.get("rows") or {name: r}).items():
+                log(f"{name} ({row_name}): ms {row['ms']:.3f} plain_ms {row['plain_ms']:.3f} "
+                    f"library_ms {row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 3)} "
+                    f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']}) at {row['shape']}")
+        check_grads(torch, ops, A, N, L, M)
+        log(f"kernels + gradients: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         counts, per_step = run_main(torch, ops, Pose2VideoPipeline)
         run_small(torch, Pose2VideoPipeline)
+        log(f"main + small: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        train_counts, train_per_step = run_train(torch, ops, Stage2Trainer)
+        run_train_small(torch, Pose2VideoPipeline, Stage2Trainer)
+        log(f"train + train_small: {time.perf_counter() - t0:.1f} s")
         kernels = []
         for name, r in recs.items():
             title, route, source, replaces = KERNEL_META[name]
-            kernels.append(dict(
+            main_counts = train_counts if name == "flash_attention_bwd" else counts
+            entry = dict(
                 name=title, route=route, source=source, replaces=replaces,
-                launches=counts[name], launches_per_step=per_step[name],
+                launches=main_counts[name], launches_per_step=per_step[name],
+                train_launches_per_step=train_per_step[name],
                 max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
                 shape=r["shape"],
-            ))
+            )
+            if r.get("rows"):
+                entry["rows"] = {k: {f: v[f] for f in ("ms", "plain_ms", "library_ms",
+                                                       "bound_ms", "bound_by", "shape")}
+                                 for k, v in r["rows"].items()}
+            kernels.append(entry)
         print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

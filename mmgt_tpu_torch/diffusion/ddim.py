@@ -2,13 +2,15 @@
 configuration: v-prediction, zero-terminal-SNR betas, trailing spacing,
 eta = 0, no clipping. `init` builds the per-step host tables (numpy); the
 step itself is the table-driven `diffusion.solver.solver_step`. Stochastic
-or clipped DDIM (Stage 1) waits for a later slice."""
+or clipped DDIM (Stage 1) waits for a later slice. `add_noise` and
+`get_velocity` are the trainer's forward process and v-target."""
 from __future__ import annotations
 
 import dataclasses
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from mmgt_tpu_torch.diffusion.schedules import (
     ScheduleTables,
@@ -52,3 +54,19 @@ class DDIMScheduler:
         alpha_prev = np.where(prev_ts >= 0, ac[np.maximum(prev_ts, 0)], final_alpha)
         return DDIMState(np.asarray(ts, np.int32), np.asarray(ac[ts], np.float32),
                          np.asarray(alpha_prev, np.float32))
+
+    def _coefs(self, x0: torch.Tensor, t: torch.Tensor):
+        """sqrt(ac[t]) and sqrt(1 - ac[t]), shaped t.shape + 1s to x0's rank."""
+        shape = tuple(t.shape) + (1,) * (x0.ndim - t.ndim)
+        idx = t.long().cpu()
+        sa = torch.from_numpy(self.tables.sqrt_alphas_cumprod)[idx]
+        s1a = torch.from_numpy(self.tables.sqrt_one_minus_alphas_cumprod)[idx]
+        return sa.reshape(shape).to(x0.device), s1a.reshape(shape).to(x0.device)
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor):
+        sa, s1a = self._coefs(x0, t)
+        return sa * x0 + s1a * noise
+
+    def get_velocity(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor):
+        sa, s1a = self._coefs(x0, t)
+        return sa * noise - s1a * x0

@@ -50,7 +50,7 @@ def ddim_timesteps(num_train_timesteps: int, num_inference_steps: int,
 
 
 class ScheduleTables:
-    """Per-timestep tables the sampler needs."""
+    """Per-timestep tables the sampler and the trainer need."""
 
     def __init__(self, betas: np.ndarray):
         betas = betas.astype(np.float64)
@@ -60,3 +60,4 @@ class ScheduleTables:
         self.alphas_cumprod = ac.astype(np.float32)
         self.sqrt_alphas_cumprod = np.sqrt(ac).astype(np.float32)
         self.sqrt_one_minus_alphas_cumprod = np.sqrt(1 - ac).astype(np.float32)
+        self.snr = (ac / (1.0 - ac)).astype(np.float32)

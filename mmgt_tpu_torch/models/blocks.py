@@ -5,9 +5,11 @@ temporal ops receive `video_length` to unfold. Module and parameter names
 follow the reference's torch checkpoints (resnets, attentions,
 audio_modules, motion_modules.N.temporal_transformer, ...).
 
-Reference-bank injection: the denoiser's self-attentions take the bank as
-pre-projected batch-1 K/V (`unet3d.precompute_bank_kv`), gated per row by
-`kv_lens` (the CFG-uncond rows stop at their own tokens).
+Reference-bank injection: at inference the denoiser's self-attentions take
+the bank as pre-projected batch-1 K/V (`unet3d.precompute_bank_kv`); in
+training as raw per-example tokens (B, L_ref, C), repeated over the frames
+and concatenated after the self K/V. Either way `kv_lens` gates the bank
+per row (the CFG-uncond or dropped rows stop at their own tokens).
 """
 from __future__ import annotations
 
@@ -117,10 +119,12 @@ class BasicTransformerBlock(nn.Module):
 class TemporalBasicTransformerBlock(nn.Module):
     """Denoiser block: bank-augmented self-attn + CLIP cross-attn + ff.
 
-    `bank_kv`: (k, v), each (1, L_ref, heads, head_dim); `bank_gate` (B,)
-    in {0, 1}: rows with gate 0 (CFG uncond) attend to their own tokens
-    only, as the reference's uc_mask. norm1 and norm3 fuse into their
-    projections (K3)."""
+    `bank_kv`: (k, v), each (1, L_ref, heads, head_dim), or `bank`: raw
+    (B, L_ref, C) tokens, one set per example (`mmgt_tpu/models/blocks.py:
+    219-237`); `bank_gate` (B,) in {0, 1}: rows with gate 0 (CFG uncond,
+    or reference dropout in training) attend to their own tokens only, as
+    the reference's uc_mask. norm1 and norm3 fuse into their projections
+    (K3)."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int = 768):
         super().__init__()
@@ -131,12 +135,16 @@ class TemporalBasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, context, bank_kv=None, video_length: int = 1, bank_gate=None):
+    def forward(self, x, context, bank_kv=None, video_length: int = 1, bank_gate=None,
+                bank=None):
         kv_lens = None
-        if bank_kv is not None and bank_gate is not None:
+        if (bank_kv is not None or bank is not None) and bank_gate is not None:
             gate_f = bank_gate.to(torch.int32).repeat_interleave(video_length)
-            kv_lens = x.shape[1] + gate_f * bank_kv[0].shape[1]
-        x = x + self.attn1(x, kv_lens=kv_lens, pre_norm=self.norm1, bank_kv=bank_kv)
+            l_ref = bank.shape[1] if bank is not None else bank_kv[0].shape[1]
+            kv_lens = x.shape[1] + gate_f * l_ref
+        bank_f = None if bank is None else bank.repeat_interleave(video_length, 0)
+        x = x + self.attn1(x, kv_lens=kv_lens, pre_norm=self.norm1, bank_kv=bank_kv,
+                           bank=bank_f)
         q_in = x if context.shape[1] == 1 else self.norm2(x)
         x = x + self.attn2(q_in, context)
         return x + self.ff(x, pre_norm=self.norm3)
@@ -257,9 +265,10 @@ class SpatialTransformerRef(_SpatialWrapper):
         super().__init__(channels, channels, TemporalBasicTransformerBlock(
             channels, heads, channels // heads, context_dim))
 
-    def forward(self, x, context, bank_kv=None, video_length: int = 1, bank_gate=None):
+    def forward(self, x, context, bank_kv=None, video_length: int = 1, bank_gate=None,
+                bank=None):
         tokens = self.transformer_blocks[0](self._tokens(x), context, bank_kv,
-                                            video_length, bank_gate)
+                                            video_length, bank_gate, bank)
         return self._out(tokens, x)
 
 

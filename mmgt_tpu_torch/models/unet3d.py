@@ -11,16 +11,28 @@ Forward, all channel-last:
   pose_feat    (B, F, h, w, C0)   PoseGuider output (added after conv_in)
   masks        3 levels x (full, face, lip), each (B, F, L_level)
   banks_kv     16 (k, v) pairs, each (1, L_i, heads, d_i): the reference
-               banks projected once per generation (`precompute_bank_kv`)
+               banks projected once per generation (`precompute_bank_kv`),
+               the inference route
   n_uncond     the first n_uncond rows are the CFG-uncond half: no bank,
                and their audio tokens / context must be zeros
+  banks        16 raw (B, L_i, C_i) banks, one set per example: the
+               training route (instead of banks_kv)
+  bank_gate    (B,) in {0, 1}, the rows that attend to the bank; by
+               default the rows from n_uncond on (`unet3d.py:99-101`)
+
+`remat=True` checkpoints every ResnetBlock, SpatialTransformerRef and
+MotionModule (`torch.utils.checkpoint`, non-reentrant) when autograd
+records, as `nn.remat` does in the JAX package (`unet3d.py:91-96`). The
+motion modules keep K4 under remat; the JAX package's remat-only unfused
+motion path (`fuse_kernels`) has no counterpart.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mmgt_tpu_torch.models.blocks import (
     Downsample,
@@ -50,11 +62,12 @@ def skip_channels(chans: Sequence[int], layers_per_block: int) -> List[int]:
 class DenoisingUNet3D(nn.Module):
     def __init__(self, block_out_channels: Sequence[int] = (320, 640, 1280, 1280),
                  layers_per_block: int = 2, heads: int = 8, motion_max_len: int = 32,
-                 context_dim: int = 768):
+                 context_dim: int = 768, remat: bool = False):
         super().__init__()
         chans = list(block_out_channels)
         self.block_out_channels, self.layers_per_block = tuple(chans), layers_per_block
         self.heads = heads
+        self.remat = remat
         n = len(chans)
         temb = chans[0] * 4
         self.conv_in = ConvNHWC(4, chans[0], 3, padding=1)
@@ -124,18 +137,35 @@ class DenoisingUNet3D(nn.Module):
                 mods += [st.transformer_blocks[0].attn1 for st in blk.attentions]
         return mods
 
+    def _run(self, mod, *args):
+        """mod(*args), checkpointed when `remat` is on and autograd records."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(mod, *args, use_reentrant=False)
+        return mod(*args)
+
     def forward(self, latents, t, context, audio_tokens, pose_feat, masks,
-                banks_kv: List[Tuple[torch.Tensor, torch.Tensor]],
-                motion_scale: Sequence[float] = (1.0, 1.0, 1.0), n_uncond: int = 0):
+                banks_kv: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
+                motion_scale: Sequence[float] = (1.0, 1.0, 1.0), n_uncond: int = 0,
+                banks: Optional[List[torch.Tensor]] = None, bank_gate=None):
         b, f = latents.shape[:2]
         dtype = self.conv_in.weight.dtype
-        # the first n_uncond rows (CFG uncond) attend without the bank
-        bank_gate = (torch.arange(b, device=latents.device) >= n_uncond).to(torch.int32)
+        if (banks is None) == (banks_kv is None):
+            raise ValueError("pass the banks raw (banks) or pre-projected (banks_kv)")
+        if bank_gate is None:
+            # the first n_uncond rows (CFG uncond) attend without the bank
+            bank_gate = (torch.arange(b, device=latents.device) >= n_uncond).to(torch.int32)
         temb = timestep_embedding(t, self.block_out_channels[0]).to(dtype)
         temb = self.time_embedding(temb).repeat_interleave(f, 0)
         context = context.repeat_interleave(f, 0)
         audio_ctx = audio_tokens.reshape(b * f, *audio_tokens.shape[2:])
-        bank_iter = iter(banks_kv)
+        bank_iter = iter(banks if banks is not None else banks_kv)
+        run = self._run
+
+        def attend(st, x):
+            bank = next(bank_iter)
+            if banks is not None:
+                return run(st, x, context, None, f, bank_gate, bank)
+            return run(st, x, context, bank, f, bank_gate)
 
         def level_masks(level):
             return tuple(m.reshape(b * f, m.shape[-1]) for m in masks[level])
@@ -144,29 +174,29 @@ class DenoisingUNet3D(nn.Module):
         res_stack = [x]
         for bi, blk in enumerate(self.down_blocks):
             for li, resnet in enumerate(blk.resnets):
-                x = resnet(x, temb)
+                x = run(resnet, x, temb)
                 if hasattr(blk, "attentions"):
-                    x = blk.attentions[li](x, context, next(bank_iter), f, bank_gate)
+                    x = attend(blk.attentions[li], x)
                     x = blk.audio_modules[li](x, audio_ctx, level_masks(bi), motion_scale,
                                               n_uncond * f)
-                x = blk.motion_modules[li](x, f)
+                x = run(blk.motion_modules[li], x, f)
                 res_stack.append(x)
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0](x)
                 res_stack.append(x)
 
         mid = self.mid_block
-        x = mid.resnets[0](x, temb)
-        x = mid.attentions[0](x, context, next(bank_iter), f, bank_gate)
-        x = mid.motion_modules[0](x, f)
-        x = mid.resnets[1](x, temb)
+        x = run(mid.resnets[0], x, temb)
+        x = attend(mid.attentions[0], x)
+        x = run(mid.motion_modules[0], x, f)
+        x = run(mid.resnets[1], x, temb)
 
         for blk in self.up_blocks:
             for li, resnet in enumerate(blk.resnets):
-                x = resnet(torch.cat([x, res_stack.pop()], -1), temb)
+                x = run(resnet, torch.cat([x, res_stack.pop()], -1), temb)
                 if hasattr(blk, "attentions"):
-                    x = blk.attentions[li](x, context, next(bank_iter), f, bank_gate)
-                x = blk.motion_modules[li](x, f)
+                    x = attend(blk.attentions[li], x)
+                x = run(blk.motion_modules[li], x, f)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
 

@@ -128,12 +128,15 @@ class Attention(nn.Module):
     """Multi-head attention with an optional context (cross) input.
 
     Biasless to_q/to_k/to_v and a biased to_out.0 (diffusers layout).
-    forward(x, context, kv_lens, pre_norm, bank_kv):
+    forward(x, context, kv_lens, pre_norm, bank_kv, bank):
       * `pre_norm`: the caller's LayerNorm; for self-attention it fuses into
         the q/k/v projections (K3);
       * `bank_kv`: pre-projected (k, v) reference-bank operands, each
         (1, L_bank, heads, head_dim), appended to the self keys by K1's
-        second segment; `kv_lens` gates them per row;
+        second segment; `kv_lens` gates them per row (inference);
+      * `bank`: raw reference tokens (B, L_bank, C), one set per row,
+        projected by to_k/to_v and concatenated after the self K/V, gated
+        per row by `kv_lens` (training, `mmgt_tpu/nn/layers.py:333-339`);
       * one context token and no kv_lens: softmax over one key is 1, so the
         result is to_out(to_v(context)) broadcast over the queries.
     """
@@ -150,10 +153,12 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(inner, out_dim or query_dim), nn.Identity()])
 
     def forward(self, x, context=None, kv_lens=None, pre_norm: Optional[LayerNorm] = None,
-                bank_kv=None):
+                bank_kv=None, bank=None):
         b, lq = x.shape[0], x.shape[1]
-        if bank_kv is not None and context is not None:
+        if (bank_kv is not None or bank is not None) and context is not None:
             raise ValueError("bank extends SELF-attention K/V only")
+        if bank_kv is not None and bank is not None:
+            raise ValueError("pass the bank raw or pre-projected, not both")
         if context is not None and context.shape[1] == 1 and kv_lens is None:
             out = self.to_out[0](self.to_v(context))
             return out.expand(b, lq, out.shape[-1])
@@ -167,6 +172,9 @@ class Attention(nn.Module):
             x_in = pre_norm(x) if pre_norm is not None else x
             kv = x_in if context is None else context
             q, k, v = self.to_q(x_in), self.to_k(kv), self.to_v(kv)
+        if bank is not None:
+            k = torch.cat([k, self.to_k(bank)], 1)
+            v = torch.cat([v, self.to_v(bank)], 1)
         h, d = self.heads, self.head_dim
         q = q.reshape(b, lq, h, d)
         k = k.reshape(b, k.shape[1], h, d)

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("flash_attn", "ln_proj", "motion_attn")
+SOURCES = ("flash_attn", "flash_attn_bwd", "ln_proj", "motion_attn")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -37,6 +37,9 @@ VP, INT, FLT, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longl
 SIGNATURES = {
     "flash_attn": {
         "mmgt_flash_attn": [VP] * 8 + [LL] * 16 + [INT] * 6 + [FLT, VP],
+    },
+    "flash_attn_bwd": {
+        "mmgt_flash_attn_bwd": [VP] * 11 + [LL] * 24 + [INT] * 5 + [FLT, VP],
     },
     "ln_proj": {
         "mmgt_ln_stats": [VP, VP, INT, INT, FLT, VP],

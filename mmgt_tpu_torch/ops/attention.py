@@ -17,10 +17,19 @@ Replaces: mmgt_tpu/ops/attention.py:_flash_kernel, _flash_fwd_lse_kernel
 and _flash_fwd_lse_2seg_kernel. Bound on the H100: operations (see the
 source note in csrc/flash_attn.cu for the design).
 
-On a CPU tensor the wrapper runs `attention_plain`; on a CUDA tensor it
-launches K1 or raises. `attention_plain` is also what the MM-HAA audio
-cross-attention uses directly: its 32-token KV runs the XLA math in the
-JAX package too (`dot_product_attention` picks `_xla_attention` there).
+The backward is kernel K5 (csrc/flash_attn_bwd.cu, `flash_attention_bwd`),
+which replaces `_flash_attention_bwd` (its dq and dk/dv kernels). When
+autograd is on and an input requires grad, `flash_attention` runs through
+`_FlashAttention`: the forward is K1 with the LSE, the backward K5 (the
+bank form concatenates the broadcast bank into the self keys and sums the
+bank's dK/dV over the batch, as `_packed_2seg_bwd`). Under `no_grad` the
+wrapper launches K1 alone.
+
+On a CPU tensor the wrappers run `attention_plain` / `attention_bwd_plain`;
+on a CUDA tensor they launch K1 / K5 or raise. `attention_plain` is also
+what the MM-HAA audio cross-attention uses directly: its 32-token KV runs
+the XLA math in the JAX package too (`dot_product_attention` picks
+`_xla_attention` there).
 """
 from __future__ import annotations
 
@@ -30,9 +39,11 @@ from typing import Optional, Tuple, Union
 import torch
 
 from mmgt_tpu_torch.ops import _build
+from mmgt_tpu_torch.ops._vjp import needs_grad
 
 NEG_INF = -1e30
 LAUNCHES = 0  # K1 launches; a run reads it to prove the path used the kernel
+BWD_LAUNCHES = 0  # K5 launches (one per flash_attention_bwd call on the card)
 
 
 def attention_plain(q, k, v, kv_lens=None, k_bank=None, v_bank=None,
@@ -61,6 +72,32 @@ def attention_plain(q, k, v, kv_lens=None, k_bank=None, v_bank=None,
     if return_lse:
         return o, (m + torch.log(l))[..., 0]
     return o
+
+
+def attention_bwd_plain(q, k, v, o, do, lse, kv_lens=None, scale: Optional[float] = None):
+    """Reference math of K5 (`_flash_dq_kernel` / `_flash_dkv_kernel`), all
+    in f32: D = rowsum(dO o O), P = exp(s * scale - lse) over the columns
+    < kv_len (masked before the exp), dV = P^T dO, dS = P o (dO V^T - D),
+    dQ = scale dS K, dK = scale dS^T Q. lse is (B, H, Sq)."""
+    b, sq, h, d = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    dsum = (dof * o.float()).sum(-1).transpose(1, 2)                  # (B, H, Sq)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if kv_lens is not None:
+        col = torch.arange(k.shape[1], device=q.device)
+        valid = (col[None, :] < kv_lens.to(q.device)[:, None])[:, None, None, :]
+        s = torch.where(valid, s - lse.float()[..., None], torch.full_like(s, NEG_INF))
+    else:
+        s = s - lse.float()[..., None]
+    p = torch.exp(s)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - dsum[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _launch(q, k, v, kv_lens, k_bank, v_bank, scale, return_lse):
@@ -109,6 +146,85 @@ def _launch(q, k, v, kv_lens, k_bank, v_bank, scale, return_lse):
     return (o, lse) if return_lse else o
 
 
+def _launch_bwd(q, k, v, o, do, lse, kv_lens, scale):
+    global BWD_LAUNCHES
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    if d > 160 or d % 8:
+        raise ValueError(f"K5 takes a head_dim <= 160 and a multiple of 8, got {d}")
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    for t, s_len in ((q, sq), (k, skv), (v, skv), (o, sq), (do, sq)):
+        if t.device != q.device or t.dtype != torch.bfloat16:
+            raise ValueError("K5 takes bf16 CUDA tensors on one device")
+        if t.shape != (b, s_len, h, d) or t.stride(-1) != 1:
+            raise ValueError(f"K5 takes (B, S, {h}, {d}) tensors with unit last stride")
+        if t.data_ptr() % 16 or any(st % 8 for st, n in zip(t.stride()[:3], t.shape[:3])
+                                    if n > 1):
+            raise ValueError("K5 takes 16-byte aligned tensors with strides a multiple of 8")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"K5 takes a contiguous f32 lse of shape ({b}, {h}, {sq})")
+    lens = None
+    if kv_lens is not None:
+        lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
+        if lens.shape != (b,):
+            raise ValueError(f"kv_lens must be ({b},)")
+    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, skv, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, skv, h, d), dtype=q.dtype, device=q.device)
+    strides = [st for t in (q, k, v, o, do, dq, dk, dv) for st in t.stride()[:3]]
+    lib = _build.load("flash_attn_bwd")
+    rc = lib.mmgt_flash_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), _build.ptr(lens), dsum.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *strides,
+        b, h, sq, skv, d, float(scale), _build.stream_ptr(q),
+    )
+    _build.check(lib, rc, "flash attention backward (K5)")
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, kv_lens=None, scale: Optional[float] = None):
+    """(dq, dk, dv) of softmax(q k^T * scale) v over (B, S, H, D), from the
+    forward's output o and log-sum-exp lse (B, H, Sq); keys past a row's
+    kv_len get no probability and zero gradient."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, o, do, lse, kv_lens, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention backward kernel for device {q.device}")
+    return _launch_bwd(q, k, v, o, do, lse, kv_lens, scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward (saving its LSE), K5 backward; plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, k_bank, v_bank, scale):
+        o, lse = flash_attention(q, k, v, kv_lens, k_bank, v_bank, scale, return_lse=True)
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, kv_lens, k_bank, v_bank, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_lens, k_bank, v_bank, o, lse = ctx.saved_tensors
+        b, ls = q.shape[0], k.shape[1]
+        if k_bank is not None:
+            k = torch.cat([k, k_bank.expand(b, *k_bank.shape[1:])], 1)
+            v = torch.cat([v, v_bank.expand(b, *v_bank.shape[1:])], 1)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, kv_lens, ctx.scale)
+        dkb = dvb = None
+        if k_bank is not None:
+            dkb = dk[:, ls:].sum(0, keepdim=True, dtype=torch.float32).to(k_bank.dtype)
+            dvb = dv[:, ls:].sum(0, keepdim=True, dtype=torch.float32).to(v_bank.dtype)
+            dk, dv = dk[:, :ls], dv[:, :ls]
+        return dq, dk, dv, None, dkb, dvb, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -123,13 +239,16 @@ def flash_attention(
 
     kv_lens (B,): valid prefix of the concatenated keys per row. With one
     key, no bank and no kv_lens the result is v broadcast (softmax over one
-    key is identically 1), as in the JAX package."""
+    key is identically 1), as in the JAX package. Differentiable: with
+    autograd on and an input that requires grad, the backward is K5."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if k.shape[1] == 1 and kv_lens is None and k_bank is None and not return_lse:
         return v.expand(q.shape[0], q.shape[1], *v.shape[2:]).to(q.dtype)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no attention kernel for device {q.device}")
+    if not return_lse and needs_grad(q, k, v, k_bank, v_bank):
+        return _FlashAttention.apply(q, k, v, kv_lens, k_bank, v_bank, scale)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_lens, k_bank, v_bank, scale, return_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {q.device}")
     return _launch(q, k, v, kv_lens, k_bank, v_bank, scale, return_lse)

@@ -14,7 +14,10 @@ bias in f32. Bound on the H100: operations (the product). The normalised
 tensor never reaches device memory.
 
 On a CPU tensor `ln_projections` runs `ln_projections_plain`; on a CUDA
-tensor it launches K3 or raises.
+tensor it launches K3 or raises. Gradients (x, gamma, beta, each weight and
+bias): the forward still runs K3 and the backward is autograd through
+`ln_projections_plain`, recomputed, as the JAX package's
+`_ln_projections_bwd` (`ops/_vjp.py`).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from mmgt_tpu_torch.ops import _build
+from mmgt_tpu_torch.ops._vjp import kernel_with_plain_vjp, needs_grad
 
 LAUNCHES = 0  # K3 launches (one per ln_projections call on the card)
 
@@ -107,8 +111,13 @@ def ln_projections(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    ws: Sequence[torch.Tensor], bs: Sequence[Optional[torch.Tensor]],
                    eps: float = 1e-5) -> Tuple[torch.Tensor, ...]:
     """tuple(LN(x) @ W_i^T + b_i) for x (..., C) and W_i (N_i, C)."""
-    if x.device.type == "cpu":
-        return ln_projections_plain(x, gamma, beta, ws, bs, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no LN-projection kernel for device {x.device}")
-    return _launch(x, gamma, beta, ws, bs, eps)
+    kernel = ln_projections_plain if x.device.type == "cpu" else _launch
+    if needs_grad(x, gamma, beta, *ws, *bs):
+        n = len(ws)
+        return kernel_with_plain_vjp(
+            lambda x, g, b, eps, *wb: kernel(x, g, b, wb[:n], wb[n:], eps),
+            lambda x, g, b, eps, *wb: ln_projections_plain(x, g, b, wb[:n], wb[n:], eps),
+            x, gamma, beta, eps, *ws, *bs)
+    return kernel(x, gamma, beta, ws, bs, eps)

@@ -19,7 +19,9 @@ were tiling rules). Bound on the H100 for the whole: operations at level 0
 (the four C x C products), bytes in the frame-attention part.
 
 On a CPU tensor `motion_attention` runs `motion_attention_plain`; on a
-CUDA tensor it launches K4 or raises.
+CUDA tensor it launches K4 or raises. Gradients: the forward still runs K4
+and the backward is autograd through `motion_attention_plain`, recomputed,
+as the JAX package's `_motion_vjp_bwd` (`ops/_vjp.py`).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import math
 import torch
 
 from mmgt_tpu_torch.ops import _build
+from mmgt_tpu_torch.ops._vjp import kernel_with_plain_vjp, needs_grad
 from mmgt_tpu_torch.ops.fused_ln import ln_gemm, row_stats
 
 LAUNCHES = 0  # K4 launches (one per motion_attention call on the card)
@@ -95,8 +98,10 @@ def _launch(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads, eps):
 def motion_attention(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads: int,
                      eps: float = 1e-5) -> torch.Tensor:
     """x + W_o attn_frames(LN(x) * gamma + beta + pe) + b_o; pe (F, C)."""
-    if x.device.type == "cpu":
-        return motion_attention_plain(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no motion-attention kernel for device {x.device}")
-    return _launch(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads, eps)
+    kernel = motion_attention_plain if x.device.type == "cpu" else _launch
+    args = (x, gamma, beta, pe, wq, wk, wv, wo, bo, heads, eps)
+    if needs_grad(x, gamma, beta, pe, wq, wk, wv, wo, bo):
+        return kernel_with_plain_vjp(kernel, motion_attention_plain, *args)
+    return kernel(*args)

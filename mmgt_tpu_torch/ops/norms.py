@@ -16,12 +16,17 @@ x is read twice and written once; the statistics are a few KB.
 
 On a CPU tensor `group_norm` runs `group_norm_plain`; on a CUDA tensor it
 launches K2 or raises. Triton is imported inside the launching function.
+Gradients: when autograd needs them, the forward still runs K2 and the
+backward is autograd through `group_norm_plain`, recomputed, as the JAX
+package's `_gn_diff_bwd` (`ops/_vjp.py`).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from mmgt_tpu_torch.ops._vjp import kernel_with_plain_vjp, needs_grad
 
 LAUNCHES = 0  # K2 launches (one per group_norm call on the card)
 _KERNELS = None
@@ -169,11 +174,13 @@ def group_norm(x: torch.Tensor, num_groups: int, weight=None, bias=None,
         raise ValueError(f"{x.shape[-1]} channels do not split into {num_groups} groups")
     if act not in (None, "silu"):
         raise ValueError(f"unknown fused activation {act!r}")
-    if x.device.type == "cpu":
-        return group_norm_plain(x, num_groups, weight, bias, eps, act)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no GroupNorm kernel for device {x.device}")
-    return _launch(x, num_groups, weight, bias, eps, act)
+    kernel = group_norm_plain if x.device.type == "cpu" else _launch
+    if needs_grad(x, weight, bias):
+        return kernel_with_plain_vjp(kernel, group_norm_plain, x, num_groups, weight, bias,
+                                     eps, act)
+    return kernel(x, num_groups, weight, bias, eps, act)
 
 
 def layer_norm(x, weight=None, bias=None, eps: float = 1e-5):

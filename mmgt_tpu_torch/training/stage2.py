@@ -1,0 +1,242 @@
+"""Stage-2 trainer (`mmgt_tpu/training/stage2.py`): the temporal/audio
+fine-tune of the denoising UNet, on the card.
+
+One `train_step`:
+  1. the frozen VAE encodes the frames and the reference image;
+  2. noise with a per-(example, channel) offset, a uniform t, `add_noise`
+     and the v-prediction target;
+  3. CFG dropout: `keep_img` zeroes the CLIP context and gates the reference
+     bank off per row (`bank_gate`), `keep_aud` zeroes the audio tokens;
+  4. the frozen ReferenceNet gives the banks (per example), the frozen pose
+     guider its features, the trained AudioProjModel the audio tokens; the
+     denoiser runs with the raw banks and `bank_gate = keep_img`;
+  5. min-SNR-gamma weighted MSE;
+  6. the gradients of the trainable half are added into f32 buffers;
+     every `gradient_accumulation_steps` steps their mean is clipped to a
+     global norm of `max_grad_norm` (optax `clip_by_global_norm`: scaled only
+     when the norm exceeds it) and AdamW (optax semantics) updates the f32
+     master copies, which are copied back into the working weights.
+All randomness is drawn up front (`draws`), so a checkpointed recompute
+draws nothing. The frozen branches run under `torch.no_grad()`.
+
+Trainable set: the JAX package's, `TRAINABLE_KEYWORDS` applied to each
+parameter's flax path (found through this package's copy of `map_unet3d`).
+That reproduces its deviation from the reference: `mid_motion` has no
+trailing underscore, so the mid block's motion module stays frozen.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple, Union
+
+import torch
+
+from mmgt_tpu_torch.diffusion.ddim import DDIMScheduler
+from mmgt_tpu_torch.diffusion.losses import min_snr_weight
+from mmgt_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline
+from mmgt_tpu_torch.utils.convert import map_unet3d
+
+TRAINABLE_KEYWORDS = ("_audio_", "_motion_", "audio_proj")
+
+
+def _unet3d_module_names(unet) -> List[str]:
+    """The flax names of DenoisingUNet3D's top-level modules."""
+    n, layers = len(unet.block_out_channels), unet.layers_per_block
+    names = ["conv_in", "time_embedding", "conv_norm_out", "conv_out",
+             "mid_res_0", "mid_res_1", "mid_attn", "mid_motion"]
+    for bi in range(n):
+        names += [f"down_{bi}_{kind}_{li}" for li in range(layers)
+                  for kind in ("res", "motion") + (("attn", "audio") if bi < n - 1 else ())]
+        names += [f"up_{bi}_{kind}_{li}" for li in range(layers + 1)
+                  for kind in ("res", "motion") + (("attn",) if bi > 0 else ())]
+        if bi < n - 1:
+            names += [f"down_{bi}_downsample", f"up_{bi}_upsample"]
+    return names
+
+
+def _flax_path(pipeline: Pose2VideoPipeline, model: str, key: str) -> str:
+    """The flax path ("<model>/params/<module>") that the JAX package's
+    `partition_params` tests for the port parameter `key` of `model`. For
+    the denoiser the module is the top-level flax module whose leaves
+    `map_unet3d` maps under the key's prefix."""
+    if model != "denoising_unet":
+        return f"{model}/params/{key}"
+    best = None
+    for name in _unet3d_module_names(pipeline.denoising_unet):
+        prefix = map_unet3d(f"{name}/kernel")[: -len(".weight")]
+        if key.startswith(prefix + ".") and (best is None or len(prefix) > len(best[0])):
+            best = (prefix, name)
+    if best is None:
+        raise KeyError(f"no flax module of the denoiser maps to {key}")
+    return f"{model}/params/{best[1]}"
+
+
+def partition_params(pipeline: Pose2VideoPipeline
+                     ) -> Tuple[Dict[str, torch.nn.Parameter], Dict[str, torch.nn.Parameter]]:
+    """(trainable, frozen), keyed "<model>.<state-dict key>"."""
+    train, frozen = {}, {}
+    for model, module in pipeline.models().items():
+        for key, p in module.named_parameters():
+            path = _flax_path(pipeline, model, key)
+            hit = any(kw in path for kw in TRAINABLE_KEYWORDS)
+            (train if hit else frozen)[f"{model}.{key}"] = p
+    return train, frozen
+
+
+@dataclasses.dataclass(eq=False)
+class TrainState:
+    step: int
+    trainable: Dict[str, torch.nn.Parameter]   # working weights (model dtype)
+    masters: Dict[str, torch.Tensor]           # f32 copies AdamW updates
+    grad_acc: Dict[str, torch.Tensor]          # f32 gradient sums
+    optimizer: torch.optim.Optimizer
+    micro: int = 0                             # steps accumulated so far
+
+
+@dataclasses.dataclass(eq=False)
+class Stage2Trainer:
+    pipeline: Pose2VideoPipeline
+    learning_rate: float = 1e-5
+    weight_decay: float = 1e-2
+    max_grad_norm: float = 1.0
+    snr_gamma: float = 5.0
+    noise_offset: float = 0.05
+    uncond_img_ratio: float = 0.1
+    uncond_audio_ratio: float = 0.05
+    motion_scale: Tuple[float, float, float] = (1.0, 2.0, 3.0)
+    gradient_accumulation_steps: int = 1
+
+    def __post_init__(self):
+        # training scheduler: zero-SNR v-prediction (train_stage_2.py:453-462)
+        self.scheduler = DDIMScheduler()
+
+    @classmethod
+    def build(cls, dtype: torch.dtype = torch.bfloat16,
+              device: Optional[Union[str, torch.device]] = None, seed: int = 0,
+              remat: bool = True, **kwargs) -> "Stage2Trainer":
+        """A trainer over the full-width Stage-2 models on `device` (the card
+        unless the caller asks for the CPU), weights from `init_params(seed)`,
+        the denoiser checkpointed when `remat`."""
+        pipe = Pose2VideoPipeline.build(dtype, device=device, seed=seed)
+        pipe.denoising_unet.remat = remat
+        return cls(pipe, **kwargs)
+
+    # ------------------------------------------------------------------
+    def init_state(self) -> TrainState:
+        trainable, frozen = partition_params(self.pipeline)
+        for p in frozen.values():
+            p.requires_grad_(False)
+        masters = {}
+        for name, p in trainable.items():
+            p.requires_grad_(True)
+            masters[name] = p.detach().float().clone()
+        opt = torch.optim.AdamW(list(masters.values()), lr=self.learning_rate,
+                                betas=(0.9, 0.999), eps=1e-8, weight_decay=self.weight_decay)
+        acc = {n: torch.zeros_like(m) for n, m in masters.items()}
+        return TrainState(0, trainable, masters, acc, opt)
+
+    def draws(self, b: int, f: int, h8: int, w8: int,
+              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Every random number of one step: t, noise, the per-(example,
+        channel) offset noise, keep_img and keep_aud."""
+        dev = self.pipeline.device
+        kw = dict(generator=generator, device=dev)
+        return {
+            "t": torch.randint(0, self.scheduler.num_train_timesteps, (b,), **kw),
+            "noise": torch.randn((b, f, h8, w8, 4), **kw),
+            "offset": torch.randn((b, 1, 1, 1, 4), **kw),
+            "keep_img": torch.rand((b,), **kw) >= self.uncond_img_ratio,
+            "keep_aud": torch.rand((b,), **kw) >= self.uncond_audio_ratio,
+        }
+
+    def loss_fn(self, batch: Dict, draws: Dict[str, torch.Tensor]):
+        """(loss, {"loss", "mse"}) for one batch: pixel_values (B, F, H, W, 3)
+        and ref_image (B, H, W, 3) in [-1, 1], clip_embed (B, 1, 768),
+        audio_embeds (B, F, 5, 12, 768), pose_video (B, F, H, W, 3), masks
+        3 levels x (full, face, lip) (B, F, L)."""
+        pipe = self.pipeline
+        dtype, dev = pipe.dtype, pipe.device
+        pixels = batch["pixel_values"].to(dev)
+        b, f = pixels.shape[:2]
+        keep_img = draws["keep_img"].to(dev)
+        keep_aud = draws["keep_aud"].to(dev)
+        t = draws["t"].to(dev)
+        with torch.no_grad():
+            latents = pipe.vae.encode_scaled(pixels.reshape(b * f, *pixels.shape[2:]).to(dtype))
+            h8, w8 = latents.shape[1:3]
+            latents = latents.reshape(b, f, h8, w8, 4).float()
+            ref_latent = pipe.vae.encode_scaled(batch["ref_image"].to(dev, dtype))
+            noise = draws["noise"].to(dev)
+            if self.noise_offset > 0:
+                noise = noise + self.noise_offset * draws["offset"].to(dev)
+            noisy = self.scheduler.add_noise(latents, noise, t)
+            target = self.scheduler.get_velocity(latents, noise, t)
+            clip_ctx = batch["clip_embed"].to(dev, dtype) * keep_img[:, None, None].to(dtype)
+            _, banks = pipe.reference_unet(ref_latent, torch.zeros_like(t), clip_ctx)
+            pose_feat = pipe.pose_guider(batch["pose_video"].to(dev, dtype))
+        audio_tokens = pipe.audio_proj(batch["audio_embeds"].to(dev, dtype))
+        audio_tokens = audio_tokens * keep_aud[:, None, None, None].to(dtype)
+        masks = [tuple(m.to(dev, dtype) for m in lv) for lv in batch["masks"]]
+        pred = pipe.denoising_unet(
+            noisy.to(dtype), t, clip_ctx, audio_tokens, pose_feat, masks,
+            motion_scale=self.motion_scale, banks=banks,
+            bank_gate=keep_img.to(torch.int32)).float()
+        per_example = ((pred - target) ** 2).mean(dim=tuple(range(1, pred.ndim)))
+        w = min_snr_weight(self.scheduler.tables, t, self.snr_gamma, "v_prediction")
+        loss = (w * per_example).mean()
+        return loss, {"loss": loss.detach(), "mse": per_example.mean().detach()}
+
+    def train_step(self, state: TrainState, batch: Dict,
+                   draws: Optional[Dict[str, torch.Tensor]] = None,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """One step on `state`, in place; returns the step's metrics."""
+        if draws is None:
+            b, f, hh, ww = batch["pixel_values"].shape[:4]
+            draws = self.draws(b, f, hh // 8, ww // 8, generator)
+        names = list(state.trainable)
+        loss, metrics = self.loss_fn(batch, draws)
+        grads = torch.autograd.grad(loss, [state.trainable[n] for n in names])
+        for n, g in zip(names, grads):
+            state.grad_acc[n].add_(g.float())
+        del grads
+        state.micro += 1
+        state.step += 1
+        if state.micro == self.gradient_accumulation_steps:
+            self._apply(state, names)
+        return metrics
+
+    @torch.no_grad()
+    def _apply(self, state: TrainState, names: List[str]) -> None:
+        """Mean of the accumulated gradients -> global-norm clip -> AdamW on
+        the f32 masters -> the working weights."""
+        grads = [state.grad_acc[n] for n in names]
+        for g in grads:
+            g.div_(self.gradient_accumulation_steps)
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        scale = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
+                            self.max_grad_norm / norm)
+        for n, g in zip(names, grads):
+            g.mul_(scale)
+            state.masters[n].grad = g
+        state.optimizer.step()
+        for n in names:
+            state.masters[n].grad = None
+            state.trainable[n].copy_(state.masters[n])
+            state.grad_acc[n].zero_()
+        state.micro = 0
+
+    def make_example_batch(self, b: int = 1, f: int = 12, height: int = 512,
+                           width: int = 512) -> Dict:
+        """Zero batch with the right structure (`stage2.py:221-236`)."""
+        dev = self.pipeline.device
+        h8, w8 = height // 8, width // 8
+        z = lambda *s: torch.zeros(s, device=dev)
+        return {
+            "pixel_values": z(b, f, height, width, 3),
+            "ref_image": z(b, height, width, 3),
+            "clip_embed": z(b, 1, 768),
+            "audio_embeds": z(b, f, 5, 12, 768),
+            "pose_video": z(b, f, height, width, 3),
+            "masks": [tuple(torch.ones((b, f, (h8 >> lv) * (w8 >> lv)), device=dev)
+                            for _ in range(3)) for lv in range(3)],
+        }

@@ -44,3 +44,11 @@ def test_build_without_device_and_without_cuda_raises(monkeypatch):
 
 def test_cpu_is_taken_only_when_asked():
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_trainer_build_without_device_and_without_cuda_raises(monkeypatch):
+    from mmgt_tpu_torch.training.stage2 import Stage2Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Stage2Trainer.build()

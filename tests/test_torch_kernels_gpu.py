@@ -1,10 +1,14 @@
-"""Each of the port's four kernels against its plain version, on the card.
+"""Each of the port's five kernels against its plain version, on the card,
+and the gradients of K1-K4's autograd Functions against autograd through
+their plain versions.
 
 Marked `gpu`; each test skips when no CUDA device is present (decided
 inside the test, never at import). Run them on a GPU machine with
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q
 Tolerance: two bf16 ulps at the largest output magnitude (both sides
-round an f32 result to bf16; the summation order may flip that rounding).
+round an f32 result to bf16; the summation order may flip that rounding);
+four for K5 and for gradients, which sum hundreds of keys or queries in
+another order and round P and dS to bf16 as product operands.
 """
 import math
 
@@ -31,8 +35,8 @@ def _bf(gen, *shape, scale=1.0):
     return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
 
 
-def _check(got, want):
-    tol = 2 * 2.0 ** -7 * want.float().abs().max().item()
+def _check(got, want, ulps=2):
+    tol = ulps * 2.0 ** -7 * want.float().abs().max().item()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol, (err, tol)
 
@@ -89,3 +93,87 @@ def test_motion_attention_kernel(gen, shape):
     assert ops.launch_counts()["motion_attention"] == 1
     assert ops.launch_counts()["ln_projections"] == 0  # its GEMM launches are K4's own
     _check(got, M.motion_attention_plain(*args))
+
+
+@pytest.mark.parametrize("d,sq,skv,lens", [(40, 300, 557, [557, 123]), (40, 200, 300, [300, 0]),
+                                           (160, 130, 257, None)])
+def test_flash_attention_backward_kernel(gen, d, sq, skv, lens):
+    """K5 against attention_bwd_plain; [300, 0] holds a row with no valid
+    key (lse ~ -1e30), whose gradients must be exactly zero."""
+    h = 2
+    q, k, v, do = _bf(gen, 2, sq, h, d), _bf(gen, 2, skv, h, d), _bf(gen, 2, skv, h, d), \
+        _bf(gen, 2, sq, h, d)
+    kl = None if lens is None else torch.tensor(lens, device="cuda", dtype=torch.int32)
+    o, lse = A.flash_attention(q, k, v, kl, return_lse=True)
+    before = A.BWD_LAUNCHES
+    got = A.flash_attention_bwd(q, k, v, o, do, lse, kl)
+    assert A.BWD_LAUNCHES == before + 1
+    want = A.attention_bwd_plain(q, k, v, o, do, lse, kl)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        _check(g, w, ulps=4)
+    if lens is not None and 0 in lens:
+        row = lens.index(0)
+        assert all(g[row].abs().max().item() == 0 for g in got)
+
+
+def _grads_match(kernel, plain, inputs, gen):
+    outs = kernel(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    cots = [torch.randn(o.shape, generator=gen, device="cuda").to(o.dtype) for o in outs]
+    got = torch.autograd.grad(outs, inputs, cots)
+    want_outs = plain(*inputs)
+    want_outs = want_outs if isinstance(want_outs, tuple) else (want_outs,)
+    for g, w in zip(got, torch.autograd.grad(want_outs, inputs, cots)):
+        assert g is not None
+        _check(g, w, ulps=4)
+
+
+def _leaf(gen, *shape, scale=1.0):
+    return _bf(gen, *shape, scale=scale).requires_grad_(True)
+
+
+def test_flash_attention_function_grads(gen):
+    kl = torch.tensor([300, 557], device="cuda", dtype=torch.int32)
+    inputs = [_leaf(gen, 2, 300, 2, 40) for _ in range(3)] + [_leaf(gen, 1, 257, 2, 40)
+                                                              for _ in range(2)]
+    ops.reset_launch_counts()
+    _grads_match(lambda q, k, v, kb, vb: A.flash_attention(q, k, v, kl, kb, vb),
+                 lambda q, k, v, kb, vb: A.attention_plain(q, k, v, kl, kb, vb), inputs, gen)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+
+
+def test_group_norm_function_grads(gen):
+    c = 320
+    ops.reset_launch_counts()
+    _grads_match(lambda x, w, b: N.group_norm(x, 32, w, b, 1e-6, "silu"),
+                 lambda x, w, b: N.group_norm_plain(x, 32, w, b, 1e-6, "silu"),
+                 [_leaf(gen, 2, 500, c), _leaf(gen, c), _leaf(gen, c)], gen)
+    assert ops.launch_counts()["group_norm"] == 1
+
+
+def test_ln_projections_function_grads(gen):
+    c = 320
+    inputs = [_leaf(gen, 2, 333, c), _leaf(gen, c, scale=0.1), _leaf(gen, c, scale=0.1)] + \
+        [_leaf(gen, 96 * (i + 1), c, scale=1 / math.sqrt(c)) for i in range(2)] + \
+        [_leaf(gen, 96 * (i + 1)) for i in range(2)]
+    ops.reset_launch_counts()
+    _grads_match(lambda x, g, b, w0, w1, b0, b1: L.ln_projections(x, g, b, [w0, w1], [b0, b1]),
+                 lambda x, g, b, w0, w1, b0, b1: L.ln_projections_plain(x, g, b, [w0, w1],
+                                                                         [b0, b1]),
+                 inputs, gen)
+    assert ops.launch_counts()["ln_projections"] == 1
+
+
+def test_motion_attention_function_grads(gen):
+    c = 320
+    pe = M.sinusoidal_positions(32, c, "cuda")[:12]
+    inputs = [_leaf(gen, 2, 12, 200, c), _leaf(gen, c, scale=0.1), _leaf(gen, c, scale=0.1)] + \
+        [_leaf(gen, c, c, scale=1 / math.sqrt(c)) for _ in range(4)] + [_leaf(gen, c, scale=0.1)]
+    ops.reset_launch_counts()
+    _grads_match(lambda x, g, b, wq, wk, wv, wo, bo: M.motion_attention(x, g, b, pe, wq, wk, wv,
+                                                                        wo, bo, 8),
+                 lambda x, g, b, wq, wk, wv, wo, bo: M.motion_attention_plain(
+                     x, g, b, pe, wq, wk, wv, wo, bo, 8), inputs, gen)
+    assert ops.launch_counts()["motion_attention"] == 1

@@ -175,7 +175,7 @@ def test_cpu_tensors_take_the_plain_path_and_other_devices_raise():
     A.flash_attention(x.reshape(2, 16, 8, 8), x.reshape(2, 16, 8, 8), x.reshape(2, 16, 8, 8))
     N.group_norm(x, 32)
     L.ln_projections(x, torch.ones(64), torch.zeros(64), [torch.randn(8, 64)], [None])
-    assert ops.launch_counts() == {k: 0 for k in ops.KERNEL_MODULES}
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNEL_COUNTERS}
     meta = torch.empty(2, 16, 64, device="meta")
     with pytest.raises(ValueError):
         N.group_norm(meta, 32)
@@ -184,3 +184,142 @@ def test_cpu_tensors_take_the_plain_path_and_other_devices_raise():
     with pytest.raises(ValueError):
         q = meta.reshape(2, 16, 8, 8)
         A.flash_attention(q, q, q)
+
+
+# ------------------------------------------------------------- gradients
+# The port's autograd Functions against jax.grad of the JAX package's
+# custom VJPs, both in f32. Tolerance 1e-4 (relative and absolute): the
+# gradients sum hundreds of f32 products in another order.
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _grads(out, inputs, cot):
+    outs = out if isinstance(out, tuple) else (out,)
+    cots = cot if isinstance(cot, tuple) else (cot,)
+    loss = sum((o * c).sum() for o, c in zip(outs, cots))
+    return torch.autograd.grad(loss, inputs)
+
+
+@pytest.mark.parametrize("lens", [None, [390, 200]])
+def test_flash_attention_backward_matches_pallas(lens):
+    """`_FlashAttention` (forward with LSE, `attention_bwd_plain` on the CPU)
+    against the Pallas dq and dk/dv kernels in interpret mode."""
+    rng = np.random.default_rng(12)
+    b, h, sq, skv, d = 2, 3, 260, 390, 40
+    q, k, v = (_rand(rng, b, s, h, d) * 0.5 for s in (sq, skv, skv))
+    do = _rand(rng, b, sq, h, d)
+    jl = None if lens is None else jnp.asarray(lens, jnp.int32)
+    bhsd = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3)
+    want = jax.grad(
+        lambda *a: jnp.sum(JA.dot_product_attention(*a, kv_lens=jl, impl="pallas_interpret")
+                           * bhsd(do)), argnums=(0, 1, 2))(bhsd(q), bhsd(k), bhsd(v))
+    tq, tk, tv = (t(x).requires_grad_(True) for x in (q, k, v))
+    kl = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    got = _grads(A.flash_attention(tq, tk, tv, kl), (tq, tk, tv), t(do))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        close(g, np.asarray(w).transpose(0, 2, 1, 3), **GRAD_TOL, msg=name)
+
+
+def test_attention_bwd_plain_zero_row():
+    """A row with kv_len = 0 (K1's lse ~ -1e30): its keys are masked before
+    the exp, so every gradient of that row is exactly 0 and finite."""
+    rng = np.random.default_rng(13)
+    q, k, v, do = (t(_rand(rng, 2, 33, 2, 8)) for _ in range(4))
+    lens = torch.tensor([33, 0], dtype=torch.int32)
+    o, lse = A.attention_plain(q, k, v, lens, return_lse=True)
+    dq, dk, dv = A.flash_attention_bwd(q, k, v, o, do, lse, lens)
+    for g in (dq, dk, dv):
+        assert torch.isfinite(g).all() and g[1].abs().max() == 0
+    assert dq[0].abs().max() > 0
+
+
+def test_bank_form_grads_match_packed_2seg_vjp():
+    """The bank form: the bank's dK/dV are summed over the batch, as
+    `packed_attention_2seg`'s VJP (`_packed_2seg_bwd`)."""
+    rng = np.random.default_rng(14)
+    b, h, d, lq, lb = 2, 2, 40, 256, 128
+    slab = JA.packed_slab(d)
+    q, ks, vs = (_rand(rng, b, lq, h, d) * 0.3 for _ in range(3))
+    kb, vb = (_rand(rng, 1, lb, h, d) * 0.3 for _ in range(2))
+    lens = [lq, lq + lb]
+    p = lambda x: _pack(x, slab)
+    prev = JA.FORCE_PACKED_INTERPRET
+    JA.FORCE_PACKED_INTERPRET = True
+    try:
+        want = jax.grad(lambda *a: jnp.sum(JA.packed_attention_2seg(
+            *a, jnp.asarray(lens, jnp.int32), 1.0 / math.sqrt(d), slab, d) ** 2),
+            argnums=(0, 1, 2, 3, 4))(p(q), p(ks), p(vs), p(kb), p(vb))
+    finally:
+        JA.FORCE_PACKED_INTERPRET = prev
+    args = [t(x).requires_grad_(True) for x in (q, ks, vs, kb, vb)]
+    o = A.flash_attention(args[0], args[1], args[2], torch.tensor(lens), args[3], args[4])
+    got = torch.autograd.grad((o ** 2).sum(), args)
+    for name, g, w in zip(("q", "k_self", "v_self", "k_bank", "v_bank"), got, want):
+        w = np.asarray(w).reshape(*g.shape[:3], slab)[..., :d]
+        close(g, w, **GRAD_TOL, msg=name)
+
+
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_group_norm_grads_match_pallas_vjp(act):
+    rng = np.random.default_rng(15)
+    x = _rand(rng, 2, 8, 8, 64) * 2 + 0.5
+    w, b, g = _rand(rng, 64), _rand(rng, 64), _rand(rng, 2, 8, 8, 64)
+    want = jax.grad(lambda x, w, b: jnp.sum(
+        JN.group_norm(x, 32, w, b, 1e-6, act, impl="pallas_interpret") * g),
+        argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    args = [t(a).requires_grad_(True) for a in (x, w, b)]
+    got = _grads(N.group_norm(args[0], 32, args[1], args[2], 1e-6, act), args, t(g))
+    for name, gi, wi in zip(("x", "weight", "bias"), got, want):
+        close(gi, wi, **GRAD_TOL, msg=name)
+
+
+def test_ln_projections_grads_match_pallas_vjp():
+    rng = np.random.default_rng(16)
+    c, outs = 64, (24, 32, 40)
+    x = _rand(rng, 2, 40, c)
+    gam, beta = 1 + 0.1 * _rand(rng, c), 0.1 * _rand(rng, c)
+    ws = [_rand(rng, c, n) / 8 for n in outs]     # flax (C, D) layout
+    bs = [_rand(rng, n) for n in outs]
+    cots = [_rand(rng, 2, 40, n) for n in outs]
+    prev = JL.FORCE_FUSED_INTERPRET
+    JL.FORCE_FUSED_INTERPRET = True
+    try:
+        want = jax.grad(lambda x, g_, b_, ws_, bs_: sum(
+            jnp.sum(o * cg) for o, cg in zip(JL.ln_projections(x, g_, b_, ws_, bs_, 1e-5), cots)),
+            argnums=(0, 1, 2, 3, 4))(jnp.asarray(x), jnp.asarray(gam), jnp.asarray(beta),
+                                     tuple(map(jnp.asarray, ws)), tuple(map(jnp.asarray, bs)))
+    finally:
+        JL.FORCE_FUSED_INTERPRET = prev
+    tx, tg, tb = (t(a).requires_grad_(True) for a in (x, gam, beta))
+    tws = [t(w.T).requires_grad_(True) for w in ws]
+    tbs = [t(b).requires_grad_(True) for b in bs]
+    got = _grads(L.ln_projections(tx, tg, tb, tws, tbs), [tx, tg, tb, *tws, *tbs],
+                 tuple(map(t, cots)))
+    close(got[0], want[0], **GRAD_TOL, msg="x")
+    close(got[1], want[1], **GRAD_TOL, msg="gamma")
+    close(got[2], want[2], **GRAD_TOL, msg="beta")
+    for i in range(3):
+        close(got[3 + i], np.asarray(want[3][i]).T, **GRAD_TOL, msg=f"w{i}")
+        close(got[6 + i], want[4][i], **GRAD_TOL, msg=f"b{i}")
+
+
+def test_motion_attention_grads_match_pallas_vjp():
+    rng = np.random.default_rng(17)
+    x, g, beta, pe, ws, bo = _motion_args(rng, 2, 4, 128, 64)
+    cot = _rand(rng, *x.shape)
+    prev = JM.FORCE_MOTION_INTERPRET
+    JM.FORCE_MOTION_INTERPRET = True
+    try:
+        want = jax.grad(lambda x, g_, b_, wq, wk, wv, wo, bo_: jnp.sum(JM.motion_attention(
+            x, g_, b_, jnp.asarray(pe), wq, wk, wv, wo, bo_, 8, 1e-5) * cot),
+            argnums=tuple(range(8)))(*map(jnp.asarray, (x, g, beta, *ws, bo)))
+    finally:
+        JM.FORCE_MOTION_INTERPRET = prev
+    tx, tg, tb = (t(a).requires_grad_(True) for a in (x, g, beta))
+    tws = [t(w.T).requires_grad_(True) for w in ws]
+    tbo = t(bo).requires_grad_(True)
+    out = M.motion_attention(tx, tg, tb, t(pe), *tws, tbo, 8)
+    got = _grads(out, [tx, tg, tb, *tws, tbo], t(cot))
+    for i, name in enumerate(("x", "gamma", "beta", "wq", "wk", "wv", "wo", "bo")):
+        w = np.asarray(want[i])
+        close(got[i], w.T if name.startswith("w") else w, **GRAD_TOL, msg=name)
