@@ -13,7 +13,10 @@ Phases, in order; any failure exits non-zero:
      time, one PyTorch library call's time where one computes the same
      function, and the bound (the larger of flops / 989 TFLOP/s and bytes /
      3.35 TB/s, each input read once and each output written once); K1 and
-     K2 are also timed at the shapes of each JAX function they replace;
+     K2 are also timed at the shapes of each JAX function they replace, K1
+     at the level-1 and level-2 bank shapes, K5 at the level-1 bank-concat
+     and level-0 audio self-attention shapes; two K5 calls on the same
+     inputs must be bitwise equal;
   3. gradients: the autograd Functions of K1-K4 on the card against
      autograd through their plain versions, at small shapes;
   4. main: Pose2VideoPipeline at full SD1.5 width, 512x512, 16 frames (two
@@ -150,8 +153,8 @@ def check_k1(torch, A):
          "_flash_attention_packed_fwd"),
         ("L0 concat + lse (training)", 2, 4096, 8192, 8, 40, False, [4096, 8192], True,
          "_flash_attention_fwd_lse"),
-        ("L1 bank", 2, 1024, 1024, 8, 80, True, [1024, 2048], False, None),
-        ("L2 bank", 2, 256, 256, 8, 160, True, [256, 512], True, None),
+        ("L1 bank", 2, 1024, 1024, 8, 80, True, [1024, 2048], False, "L1 bank (d = 80)"),
+        ("L2 bank", 2, 256, 256, 8, 160, True, [256, 512], True, "L2 bank (d = 160)"),
         ("L3 bank", 2, 64, 64, 8, 160, True, [64, 128], False, None),
         ("VAE mid d=512", 1, 4096, 4096, 1, 512, False, None, False, "_flash_attention"),
     ]
@@ -305,23 +308,30 @@ def check_k5(torch, A):
     plain version's f32 P alone would take ~13 GB). Tolerance: 4 bf16 ulps
     at the largest |value| of each of dq, dk, dv: dk/dv sum thousands of
     queries in another order than the plain version, and P and dS are
-    rounded to bf16 as product operands."""
+    rounded to bf16 as product operands. Two calls on the same inputs must
+    be bitwise equal. Timed at the level-0 and level-1 bank-concat shapes
+    and the level-0 audio self-attention; the library time is SDPA's
+    forward + backward less its forward."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rec = None
-    for name, b, sq, skv, h, d, lens in [  # (name, batch, q seq, kv seq, heads, d, kv_lens)
-        ("L0 bank concat", 2, 4096, 8192, 8, 40, [4096, 8192]),
-        ("L1 bank concat", 2, 1024, 2048, 8, 80, [1024, 2048]),
-        ("L2 bank concat", 2, 256, 512, 8, 160, [256, 512]),
-        ("mid bank concat", 2, 64, 128, 8, 160, [64, 128]),
-        ("L0 audio self-attention", 2, 4096, 4096, 8, 40, None),
+    rec, rows = None, {}
+    for name, b, sq, skv, h, d, lens, timed in [  # (name, batch, q seq, kv seq, heads, d, kv_lens)
+        ("L0 bank concat", 2, 4096, 8192, 8, 40, [4096, 8192], True),
+        ("L1 bank concat", 2, 1024, 2048, 8, 80, [1024, 2048], True),
+        ("L2 bank concat", 2, 256, 512, 8, 160, [256, 512], False),
+        ("mid bank concat", 2, 64, 128, 8, 160, [64, 128], False),
+        ("L0 audio self-attention", 2, 4096, 4096, 8, 40, None, True),
     ]:
         q, k, v, do = rnd(b, sq, h, d), rnd(b, skv, h, d), rnd(b, skv, h, d), rnd(b, sq, h, d)
         kl = torch.tensor(lens, dtype=torch.int32, device=dev) if lens else None
         o, lse = A.flash_attention(q, k, v, kl, return_lse=True)
         got = A.flash_attention_bwd(q, k, v, o, do, lse, kl)
+        again = A.flash_attention_bwd(q, k, v, o, do, lse, kl)
+        require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                f"K5 {name}: two calls on the same inputs differ")
+        del again
         want = A.attention_bwd_plain(q, k, v, o, do, lse, kl)
         err = 0.0
         for gname, gg, ww in zip(("dq", "dk", "dv"), got, want):
@@ -329,22 +339,30 @@ def check_k5(torch, A):
             log(f"K5 {name} {gname}: max_abs_err {e:.3e} (tol {tol:.3e}, 4 bf16 ulps)")
             require(math.isfinite(e) and e <= tol, f"K5 {name} {gname}: err {e} > {tol}")
             err = max(err, e)
+        log(f"K5 {name}: two calls bitwise equal")
         del want
-        if rec is None:  # the hottest shape: level 0 of the denoiser, bank concatenated
+        if timed:
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
             dot = do.transpose(1, 2)
-            mask = (torch.arange(skv, device=dev)[None, :] < kl[:, None])[:, None, None, :]
+            mask = None
+            if kl is not None:
+                mask = (torch.arange(skv, device=dev)[None, :] < kl[:, None])[:, None, None, :]
             fwd = lambda: sdpa(qt, kt, vt, attn_mask=mask)
             fwd_ms = time_ms(fwd)
             fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(fwd(), (qt, kt, vt), dot))
-            rec = time_row(
+            valid = sum(lens) if lens else b * skv
+            row = time_row(
                 lambda: A.flash_attention_bwd(q, k, v, o, do, lse, kl),
                 lambda: A.attention_bwd_plain(q, k, v, o, do, lse, kl), None,
-                10.0 * h * d * sq * sum(lens), nbytes(q, k, v, o, do, lse, *got),
+                10.0 * h * d * sq * valid, nbytes(q, k, v, o, do, lse, *got),
                 f"{name}: q {tuple(q.shape)}, K/V {tuple(k.shape)}, kv_lens {lens}",
                 plain_iters=2)
-            rec.update(max_abs_err=err, library_ms=fwd_bwd_ms - fwd_ms)
-            log(f"K5 SDPA at {rec['shape']}: fwd+bwd {fwd_bwd_ms:.3f} ms, fwd {fwd_ms:.3f} ms")
+            row.update(max_abs_err=err, library_ms=fwd_bwd_ms - fwd_ms)
+            log(f"K5 SDPA at {row['shape']}: fwd+bwd {fwd_bwd_ms:.3f} ms, fwd {fwd_ms:.3f} ms")
+            rows[name] = row
+            if rec is None:  # the hottest shape: level 0 of the denoiser, bank concatenated
+                rec = dict(row, rows=rows)
+            del qt, kt, vt
         del q, k, v, do, o, lse, got
         torch.cuda.empty_cache()
     return rec

@@ -1,49 +1,72 @@
 // K5: flash-attention backward for Hopper (sm_90a), bf16 in/out.
 //
 // Replaces the TPU kernels of mmgt_tpu/ops/attention.py:_flash_attention_bwd
-// (:376): _flash_dq_kernel (:236) and _flash_dkv_kernel (:270). Given the
-// forward's q, k, v, o, its f32 log-sum-exp (K1's `lse`, (B, H, Sq)), the
-// output gradient dO and the per-row valid key count kv_lens[b], it
-// computes, per (row b, head h), over the keys j < kv_len:
+// (:376): _flash_dq_kernel (:236, pallas_call :411) and _flash_dkv_kernel
+// (:270, pallas_call :434). Given the forward's q, k, v, o, its f32
+// log-sum-exp (K1's `lse`, (B, H, Sq)), the output gradient dO and the
+// per-row valid key count kv_lens[b], it computes, per (row b, head h), over
+// the keys j < kv_len:
 //     D_i  = sum_d dO_id O_id                          (f32)
 //     P_ij = exp(scale * q_i . k_j - lse_i)
 //     dV_j = sum_i P_ij dO_i
 //     dS_ij = P_ij (dO_i . v_j - D_i)
 //     dQ_i = scale * sum_j dS_ij k_j,   dK_j = scale * sum_i dS_ij q_i
 // Keys at or past kv_len get P = 0 before anything else (a row with
-// kv_len = 0 has lse ~ -1e30, so the exp must never see it), and their
-// dK/dV rows are written as zeros.
+// kv_len = 0 has lse ~ -1e30, so the exp never sees it), and their dK/dV
+// rows are written as zeros.
 //
-// Three launches in one C entry, with no atomics (the result is
-// deterministic), the JAX package's own two-pass split:
+// Bound on the H100 (989 TFLOP/s bf16, 3.35 TB/s): operations. At the
+// level-0 bank-concat shape (q (2, 4096, 8, 40), K/V (2, 8192, 8, 40),
+// kv_lens [4096, 8192]) the five products take 10 * H * d * Sq *
+// sum(kv_len) = 161 GFLOP against 53 MB moved: 0.163 ms at the peak.
+//
+// Three launches in one C entry, with no atomics and a fixed summation
+// order, so the result is bitwise the same from call to call (the JAX
+// package's own two-pass split):
 //   1. bwd_dsum: D for every (b, h, i), one warp per row;
-//   2. bwd_dq:   one block per (64-query tile, h, b), looping over the
-//                64-key tiles below kv_len;
-//   3. bwd_dkv:  one block per (64-key tile, h, b), looping over every
-//                query tile; a tile whose first key is >= kv_len writes
-//                zeros and returns.
-// Each pass recomputes S = Q K^T and dP = dO V^T on the tensor cores (WMMA
-// bf16 16x16x16, f32 accumulate); P and dS are rounded to bf16 only as
-// operands of the next product, as in FlashAttention-2. head_dim 40 / 80
-// run zero-padded to 48 / 96 inside shared memory; 160 as is. The f32
-// accumulators (dQ; dK and dV) live in shared memory: at d = 160 the dK/dV
-// pass holds K, V, Q and dO tiles, S and dP in f32, P and dS in bf16 and
-// both accumulators, 213.5 KB, set above the 48 KB default.
-//
-// Bound on the H100: operations. At the level-0 bank shape (q (12, 4096,
-// 8, 40), K/V (12, 8192, 8, 40)) the five products take 10 * H * D * Sq *
-// sum(kv_len) flops against ~(4 * Sq + 4 * Skv) * H * D * 2 bytes per row.
-// This first version uses WMMA from shared memory with no cp.async/TMA
-// pipelining; `wgmma` and TMA come in a later PR.
+//   2. bwd_dq:   one block of 8 warps per (128-query tile, h, b); each warp
+//                owns 16 query rows and loops over the 64-key tiles below
+//                kv_len: S = Q K^T and dP = dO V^T by mma.sync m16n8k16,
+//                P and dS computed in the accumulator registers, then
+//                dQ += dS K with dS packed to bf16 as the A fragment.
+//                dQ stays in registers for the whole key loop;
+//   3. bwd_dkv:  one block of 8 warps per key tile; each warp owns 16 key
+//                rows and loops over every 64-query tile: S^T = K Q^T and
+//                dP^T = V dO^T, P^T and dS^T in the accumulator registers
+//                and, packed to bf16, the A fragments of dV += P^T dO and
+//                dK += dS^T Q (FlashAttention-2's register reuse). dK and
+//                dV stay in registers for the whole query loop. A tile
+//                whose first key is >= kv_len writes zeros and returns.
+// Staging: the streamed tiles (K/V in the dq pass; Q, dO, lse and D in the
+// dk/dv pass) go through a 3-stage cp.async ring (16-byte copies for the
+// tiles, 4-byte ones for lse and D), so the next tiles load while the
+// tensor cores work on this one. Fragments come from shared
+// memory by ldmatrix (.trans for the B operands of the accumulating
+// products). Rows are padded by 16 bytes (an odd number of 16-byte chunks
+// a row: 7, 13, 21), which makes every ldmatrix conflict-free; an XOR
+// swizzle needs a power-of-two number of chunks a row, and the padded head
+// dims (48, 96, 160) are not.
+// Head dims: 40 and 80 run zero-padded to 48 and 96 (zero-filled copies,
+// no device memory); 160 as is. Registers at 16 rows a warp: dK and dV
+// take DP f32 registers a thread, S^T and dP^T 32 more. At d = 160 the
+// dk/dv pass splits dK/dV's columns over two warps (80 each), which both
+// compute S^T and dP^T for their 16 keys, so a block holds 64 keys; at
+// d <= 96 a block holds 128 keys (8 warps x 16).
+// Shared memory (dq / dk-dv): d 48: 70 / 72 KB, d 96: 130 / 132 KB,
+// d 160: 210 / 170 KB.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "mma_tiles.cuh"
+
 typedef __nv_bfloat16 bf16;
+using namespace mma_tiles;
 
 namespace {
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kStages = 3;
 
 struct BwdParams {
   const bf16* q; const bf16* k; const bf16* v; const bf16* o; const bf16* dout;
@@ -61,59 +84,27 @@ __device__ __forceinline__ int kv_len_of(const BwdParams& p, int b) {
   return max(0, min(n, p.Skv));
 }
 
-// dst[rows][DP] <- base[r * ss + c] for r < nvalid, c < D; zero elsewhere.
-// 16-byte loads: the wrapper requires D % 8 == 0 and 16-byte aligned rows.
+// rows x DP of a (rows, D) slice with row stride ss into a tile of row
+// stride DP + 8 elements; rows >= nvalid and columns >= D are zero-filled
 template <int DP>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* base, long long ss,
-                                          int rows, int nvalid, int D, int tid,
-                                          int nthreads) {
-  constexpr int VPR = DP / 8;
-  for (int i = tid; i < rows * VPR; i += nthreads) {
-    int r = i / VPR, c = (i % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nvalid && c < D) val = *reinterpret_cast<const uint4*>(base + r * ss + c);
-    *reinterpret_cast<uint4*>(dst + r * DP + c) = val;
+__device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src, long long ss, int rows,
+                                          int nvalid, int D, int tid) {
+  constexpr int CH = DP / 8;
+  for (int i = tid; i < rows * CH; i += 256) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool ok = r < nvalid && c < D;
+    cp_async16(dst + (uint32_t)(r * (DP + 8) + c) * 2, ok ? src + r * ss + c : src, ok);
   }
 }
 
-// out[16][N] (f32, ld N) = A[16][DP] . B[N][DP]^T, both bf16 row-major in
-// shared memory: one warp's 16 rows against N rows of the other operand.
-template <int DP, int N>
-__device__ __forceinline__ void warp_abt(float* out, const bf16* a, const bf16* b) {
-#pragma unroll
-  for (int j = 0; j < N / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, DP);
-      wmma::load_matrix_sync(fb, b + j * 16 * DP + kk * 16, DP);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(out + j * 16, acc, N, wmma::mem_row_major);
-  }
+// byte offset of (row, col) in a padded tile
+template <int DP>
+__device__ __forceinline__ uint32_t at(int row, int col) {
+  return (uint32_t)(row * (DP + 8) + col) * 2;
 }
 
-// acc[16][DP] (f32 in shared memory, ld DP) += A[16][K] . B[K][DP], A bf16
-// (ld K) and B bf16 (ld DP), both row-major.
-template <int DP, int K>
-__device__ __forceinline__ void warp_acc_ab(float* acc_s, const bf16* a, const bf16* b) {
-#pragma unroll
-  for (int j = 0; j < DP / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, acc_s + j * 16, DP, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < K / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, K);
-      wmma::load_matrix_sync(fb, b + kk * 16 * DP + j * 16, DP);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(acc_s + j * 16, acc, DP, wmma::mem_row_major);
-  }
+__device__ __forceinline__ void store_pair(bf16* dst, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x, y);
 }
 
 // ------------------------------------------------------------ 1. D = rowsum
@@ -133,204 +124,299 @@ __global__ void bwd_dsum(BwdParams p) {
 }
 
 // ------------------------------------------------------------ 2. dQ
-template <int DP, int BQ, int BK>
-constexpr size_t dq_smem_bytes() {
-  return (size_t)(2 * BQ * DP + 2 * BK * DP) * 2 + (size_t)2 * BQ * BK * 4 +
-         (size_t)BQ * BK * 2 + (size_t)BQ * DP * 4 + 2 * BQ * 4;
-}
+template <int DP>
+struct DqCfg {
+  static constexpr int BQ = 128, BK = 64;
+  static constexpr int QT = BQ * (DP + 8) * 2, KT = BK * (DP + 8) * 2;
+  static constexpr int SMEM = 2 * QT + kStages * 2 * KT;
+};
 
-template <int DP, int BQ, int BK>
-__global__ void __launch_bounds__(BQ / 16 * 32) bwd_dq(BwdParams p) {
-  constexpr int NT = BQ / 16 * 32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);            // [BQ][DP]
-  bf16* dOs = Qs + BQ * DP;                            // [BQ][DP]
-  bf16* Ks = dOs + BQ * DP;                            // [BK][DP]
-  bf16* Vs = Ks + BK * DP;                             // [BK][DP]
-  float* Ss = reinterpret_cast<float*>(Vs + BK * DP);  // [BQ][BK] logits
-  float* dPs = Ss + BQ * BK;                           // [BQ][BK] dO V^T
-  bf16* dSs = reinterpret_cast<bf16*>(dPs + BQ * BK);  // [BQ][BK]
-  float* dQs = reinterpret_cast<float*>(dSs + BQ * BK);  // [BQ][DP] accumulator
-  float* Lse = dQs + BQ * DP;
-  float* Dsum = Lse + BQ;
+template <int DP>
+__global__ void __launch_bounds__(256, 1) bwd_dq(const BwdParams p) {
+  using C = DqCfg<DP>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t sQ = smem_u32(smem), sdO = sQ + C::QT, sKV = sdO + C::QT;
+  auto sK = [&](int st) { return sKV + st * 2 * C::KT; };
+  auto sV = [&](int st) { return sKV + st * 2 * C::KT + C::KT; };
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int nq = min(BQ, p.Sq - q0);
-  const long long row0 = ((long long)b * p.H + h) * p.Sq + q0;
-
-  load_tile<DP>(Qs, p.q + b * p.q_sb + q0 * p.q_ss + h * p.q_sh, p.q_ss, BQ, nq, p.D, tid, NT);
-  load_tile<DP>(dOs, p.dout + b * p.do_sb + q0 * p.do_ss + h * p.do_sh, p.do_ss, BQ, nq,
-                p.D, tid, NT);
-  for (int i = tid; i < BQ * DP; i += NT) dQs[i] = 0.f;
-  for (int r = tid; r < BQ; r += NT) {
-    Lse[r] = r < nq ? p.lse[row0 + r] : 0.f;
-    Dsum[r] = r < nq ? p.dsum[row0 + r] : 0.f;
-  }
-
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, qd = lane & 3;
+  const int q0 = blockIdx.x * C::BQ, h = blockIdx.y, b = blockIdx.z;
+  const int nq = min(C::BQ, p.Sq - q0);
   const int kv_len = kv_len_of(p, b);
+  const int ntiles = (kv_len + C::BK - 1) / C::BK;
   const bf16* kbase = p.k + b * p.k_sb + h * p.k_sh;
   const bf16* vbase = p.v + b * p.v_sb + h * p.v_sh;
-  const bf16* Qw = Qs + warp * 16 * DP;
-  const bf16* dOw = dOs + warp * 16 * DP;
-  float* Sw = Ss + warp * 16 * BK;
-  float* dPw = dPs + warp * 16 * BK;
-  bf16* dSw = dSs + warp * 16 * BK;
-  float* dQw = dQs + warp * 16 * DP;
+  auto load_kv = [&](int t) {
+    if (t < ntiles) {
+      const int k0 = t * C::BK, n = min(C::BK, p.Skv - k0);
+      load_rows<DP>(sK(t % kStages), kbase + k0 * p.k_ss, p.k_ss, C::BK, n, p.D, tid);
+      load_rows<DP>(sV(t % kStages), vbase + k0 * p.v_ss, p.v_ss, C::BK, n, p.D, tid);
+    }
+    cp_async_commit();
+  };
 
-  for (int k0 = 0; k0 < kv_len; k0 += BK) {
-    const int nk = min(BK, kv_len - k0);
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<DP>(Ks, kbase + k0 * p.k_ss, p.k_ss, BK, nk, p.D, tid, NT);
-    load_tile<DP>(Vs, vbase + k0 * p.v_ss, p.v_ss, BK, nk, p.D, tid, NT);
-    __syncthreads();
+  load_rows<DP>(sQ, p.q + b * p.q_sb + (long long)q0 * p.q_ss + h * p.q_sh, p.q_ss, C::BQ, nq,
+                p.D, tid);
+  load_rows<DP>(sdO, p.dout + b * p.do_sb + (long long)q0 * p.do_ss + h * p.do_sh, p.do_ss,
+                C::BQ, nq, p.D, tid);
+  for (int t = 0; t < kStages - 1; ++t) load_kv(t);  // Q and dO travel with tile 0
 
-    warp_abt<DP, BK>(Sw, Qw, Ks);    // S  = Q K^T
-    warp_abt<DP, BK>(dPw, dOw, Vs);  // dP = dO V^T
-    __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      const int row = warp * 16 + r;
-      const float lse = Lse[row], dsum = Dsum[row];
+  // this thread's two query rows: lse (log2 units; +inf past Sq gives P = 0) and D
+  float lse2[2], dd[2];
+  const long long row0 = ((long long)b * p.H + h) * p.Sq + q0;
 #pragma unroll
-      for (int t = 0; t < BK / 32; ++t) {
-        const int c = lane + 32 * t;
-        const float pv = (c < nk && row < nq) ? __expf(Sw[r * BK + c] * p.scale - lse) : 0.f;
-        dSw[r * BK + c] = __float2bfloat16(pv * (dPw[r * BK + c] - dsum));
+  for (int j = 0; j < 2; ++j) {
+    const int r = 16 * warp + g + 8 * j;
+    lse2[j] = r < nq ? p.lse[row0 + r] * kLog2e : INFINITY;
+    dd[j] = r < nq ? p.dsum[row0 + r] : 0.f;
+  }
+  const float sl2 = p.scale * kLog2e;
+  float dq[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile t has landed; every warp is done with tile t - 1
+    load_kv(t + kStages - 1);
+    const uint32_t k_s = sK(t % kStages), v_s = sV(t % kStages);
+
+    // S = Q K^T and dP = dO V^T: 16 query rows x 64 keys
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) { s[i] = 0.f; dp[i] = 0.f; }
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t aq[4], ado[4];
+      ldsm_x4(aq, sQ + at<DP>(16 * warp + a_row(lane), 16 * kk + a_col(lane)));
+      ldsm_x4(ado, sdO + at<DP>(16 * warp + a_row(lane), 16 * kk + a_col(lane)));
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, k_s + at<DP>(16 * np + bn_row(lane), 16 * kk + bn_col(lane)));
+        ldsm_x4(bv, v_s + at<DP>(16 * np + bn_row(lane), 16 * kk + bn_col(lane)));
+        mma16816(s + 8 * np, aq, bk[0], bk[1]);
+        mma16816(s + 8 * np + 4, aq, bk[2], bk[3]);
+        mma16816(dp + 8 * np, ado, bv[0], bv[1]);
+        mma16816(dp + 8 * np + 4, ado, bv[2], bv[3]);
       }
     }
-    __syncwarp();
-    warp_acc_ab<DP, BK>(dQw, dSw, Ks);  // dQ += dS K
-    __syncwarp();
+    // P (0 at or past kv_len, before the exp) and dS = P (dP - D), in place
+    const int k0 = t * C::BK;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * nt + 2 * qd + (e & 1), j = e >> 1;
+        const float pv = key < kv_len ? exp2f(fmaf(s[4 * nt + e], sl2, -lse2[j])) : 0.f;
+        s[4 * nt + e] = pv * (dp[4 * nt + e] - dd[j]);
+      }
+    // dQ += dS K
+#pragma unroll
+    for (int kk = 0; kk < C::BK / 16; ++kk) {
+      uint32_t a[4];
+      acc_to_a(a, s + 8 * kk);
+#pragma unroll
+      for (int np = 0; np < DP / 16; ++np) {
+        uint32_t bk[4];
+        ldsm_x4_t(bk, k_s + at<DP>(16 * kk + bt_row(lane), 16 * np + bt_col(lane)));
+        mma16816(dq + 8 * np, a, bk[0], bk[1]);
+        mma16816(dq + 8 * np + 4, a, bk[2], bk[3]);
+      }
+    }
   }
-  __syncthreads();
+  cp_async_wait<0>();
 
-  for (int i = tid; i < BQ * DP; i += NT) {
-    const int r = i / DP, c = i % DP;
-    if (r < nq && c < p.D)
-      p.dq[b * p.dq_sb + (q0 + r) * p.dq_ss + h * p.dq_sh + c] =
-          __float2bfloat16(dQs[i] * p.scale);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = 16 * warp + g + 8 * j;
+    if (r >= nq) continue;
+    bf16* drow = p.dq + b * p.dq_sb + (long long)(q0 + r) * p.dq_ss + h * p.dq_sh;
+#pragma unroll
+    for (int nt = 0; nt < DP / 8; ++nt) {
+      const int col = 8 * nt + 2 * qd;
+      if (col < p.D)
+        store_pair(drow + col, dq[4 * nt + 2 * j] * p.scale, dq[4 * nt + 2 * j + 1] * p.scale);
+    }
   }
 }
 
 // ------------------------------------------------------------ 3. dK, dV
-template <int DP, int BQ, int BK>
-constexpr size_t dkv_smem_bytes() {
-  return (size_t)(2 * BK * DP + 2 * BQ * DP) * 2 + (size_t)2 * BK * BQ * 4 +
-         (size_t)2 * BK * BQ * 2 + (size_t)2 * BK * DP * 4 + 2 * BQ * 4;
-}
+template <int DP, int NSPLIT>
+struct DkvCfg {
+  static constexpr int NG = 8 / NSPLIT;   // 16-key row groups a block
+  static constexpr int KR = 16 * NG;      // keys a block
+  static constexpr int DPW = DP / NSPLIT; // dK/dV columns a warp
+  static constexpr int BQ = 64;
+  static constexpr int KT = KR * (DP + 8) * 2, QT = BQ * (DP + 8) * 2;
+  static constexpr int STAGE = 2 * QT + 2 * BQ * 4;  // Q, dO, lse, D
+  static constexpr int SMEM = 2 * KT + kStages * STAGE;
+  static_assert(DPW % 16 == 0, "a warp's columns are whole ldmatrix pairs");
+};
 
-template <int DP, int BQ, int BK>
-__global__ void __launch_bounds__(BK / 16 * 32) bwd_dkv(BwdParams p) {
-  constexpr int NT = BK / 16 * 32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);              // [BK][DP]
-  bf16* Vs = Ks + BK * DP;                               // [BK][DP]
-  bf16* Qs = Vs + BK * DP;                               // [BQ][DP]
-  bf16* dOs = Qs + BQ * DP;                              // [BQ][DP]
-  float* St = reinterpret_cast<float*>(dOs + BQ * DP);   // [BK][BQ] (K Q^T)
-  float* dPt = St + BK * BQ;                             // [BK][BQ] (V dO^T)
-  bf16* Pt = reinterpret_cast<bf16*>(dPt + BK * BQ);     // [BK][BQ]
-  bf16* dSt = Pt + BK * BQ;                              // [BK][BQ]
-  float* dKs = reinterpret_cast<float*>(dSt + BK * BQ);  // [BK][DP] accumulator
-  float* dVs = dKs + BK * DP;                            // [BK][DP] accumulator
-  float* Lse = dVs + BK * DP;
-  float* Dsum = Lse + BQ;
+template <int DP, int NSPLIT>
+__global__ void __launch_bounds__(256, 1) bwd_dkv(const BwdParams p) {
+  using C = DkvCfg<DP, NSPLIT>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t sK = smem_u32(smem), sV = sK + C::KT, sRing = sV + C::KT;
+  auto sQ = [&](int st) { return sRing + st * C::STAGE; };
+  auto sdO = [&](int st) { return sRing + st * C::STAGE + C::QT; };
+  auto stats = [&](int st) {  // [0, 64): lse, [64, 128): D
+    return reinterpret_cast<const float*>(smem + 2 * C::KT + st * C::STAGE + 2 * C::QT);
+  };
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const int nrows = min(BK, p.Skv - k0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, qd = lane & 3;
+  const int rg = warp % C::NG, part = warp / C::NG;
+  const int k0 = blockIdx.x * C::KR, h = blockIdx.y, b = blockIdx.z;
+  const int nrows = min(C::KR, p.Skv - k0);
   const int kv_len = kv_len_of(p, b);
-  bf16* dkbase = p.dk + b * p.dk_sb + k0 * p.dk_ss + h * p.dk_sh;
-  bf16* dvbase = p.dv + b * p.dv_sb + k0 * p.dv_ss + h * p.dv_sh;
+  bf16* dkbase = p.dk + b * p.dk_sb + (long long)k0 * p.dk_ss + h * p.dk_sh;
+  bf16* dvbase = p.dv + b * p.dv_sb + (long long)k0 * p.dv_ss + h * p.dv_sh;
   if (k0 >= kv_len) {  // no valid key in this tile: its gradients are zero
     const bf16 z = __float2bfloat16(0.f);
-    for (int i = tid; i < nrows * p.D; i += NT) {
+    for (int i = tid; i < nrows * p.D; i += 256) {
       const int r = i / p.D, c = i % p.D;
       dkbase[r * p.dk_ss + c] = z;
       dvbase[r * p.dv_ss + c] = z;
     }
     return;
   }
-  const int nk = min(BK, kv_len - k0);
-
-  load_tile<DP>(Ks, p.k + b * p.k_sb + k0 * p.k_ss + h * p.k_sh, p.k_ss, BK, nk, p.D, tid, NT);
-  load_tile<DP>(Vs, p.v + b * p.v_sb + k0 * p.v_ss + h * p.v_sh, p.v_ss, BK, nk, p.D, tid, NT);
-  for (int i = tid; i < BK * DP; i += NT) { dKs[i] = 0.f; dVs[i] = 0.f; }
-
+  const int nk = min(C::KR, kv_len - k0);
+  const int ntiles = (p.Sq + C::BQ - 1) / C::BQ;
   const bf16* qbase = p.q + b * p.q_sb + h * p.q_sh;
   const bf16* dobase = p.dout + b * p.do_sb + h * p.do_sh;
   const long long rowbase = ((long long)b * p.H + h) * p.Sq;
-  const bf16* Kw = Ks + warp * 16 * DP;
-  const bf16* Vw = Vs + warp * 16 * DP;
-  float* Sw = St + warp * 16 * BQ;
-  float* dPw = dPt + warp * 16 * BQ;
-  bf16* Pw = Pt + warp * 16 * BQ;
-  bf16* dSw = dSt + warp * 16 * BQ;
-  float* dKw = dKs + warp * 16 * DP;
-  float* dVw = dVs + warp * 16 * DP;
-
-  for (int q0 = 0; q0 < p.Sq; q0 += BQ) {
-    const int nq = min(BQ, p.Sq - q0);
-    __syncthreads();  // every warp is done with the previous Q/dO tile
-    load_tile<DP>(Qs, qbase + q0 * p.q_ss, p.q_ss, BQ, nq, p.D, tid, NT);
-    load_tile<DP>(dOs, dobase + q0 * p.do_ss, p.do_ss, BQ, nq, p.D, tid, NT);
-    for (int r = tid; r < BQ; r += NT) {
-      Lse[r] = r < nq ? p.lse[rowbase + q0 + r] : 0.f;
-      Dsum[r] = r < nq ? p.dsum[rowbase + q0 + r] : 0.f;
-    }
-    __syncthreads();
-
-    warp_abt<DP, BQ>(Sw, Kw, Qs);    // S^T  = K Q^T
-    warp_abt<DP, BQ>(dPw, Vw, dOs);  // dP^T = V dO^T
-    __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      const bool key_ok = warp * 16 + r < nk;
-#pragma unroll
-      for (int t = 0; t < BQ / 32; ++t) {
-        const int c = lane + 32 * t;
-        const float pv =
-            (key_ok && c < nq) ? __expf(Sw[r * BQ + c] * p.scale - Lse[c]) : 0.f;
-        Pw[r * BQ + c] = __float2bfloat16(pv);
-        dSw[r * BQ + c] = __float2bfloat16(pv * (dPw[r * BQ + c] - Dsum[c]));
+  auto load_q = [&](int t) {
+    if (t < ntiles) {
+      const int q0 = t * C::BQ, n = min(C::BQ, p.Sq - q0), st = t % kStages;
+      load_rows<DP>(sQ(st), qbase + (long long)q0 * p.q_ss, p.q_ss, C::BQ, n, p.D, tid);
+      load_rows<DP>(sdO(st), dobase + (long long)q0 * p.do_ss, p.do_ss, C::BQ, n, p.D, tid);
+      // lse and D of the tile's queries; past Sq they are zero-filled, and
+      // so are those rows of Q and dO: S^T = 0, P^T = 1 and dS^T = 0 there,
+      // and P^T meets a zero dO row, so they add exactly nothing
+      if (tid < 2 * C::BQ) {
+        const int i = tid % C::BQ;
+        const float* src = (tid < C::BQ ? p.lse : p.dsum) + rowbase + q0 + i;
+        cp_async4(sRing + st * C::STAGE + 2 * C::QT + tid * 4, i < n ? src : p.lse, i < n);
       }
     }
-    __syncwarp();
-    warp_acc_ab<DP, BQ>(dVw, Pw, dOs);  // dV += P^T dO
-    warp_acc_ab<DP, BQ>(dKw, dSw, Qs);  // dK += dS^T Q
-    __syncwarp();
-  }
-  __syncthreads();
+    cp_async_commit();
+  };
 
-  for (int i = tid; i < BK * DP; i += NT) {
-    const int r = i / DP, c = i % DP;
-    if (r < nrows && c < p.D) {
-      dkbase[r * p.dk_ss + c] = __float2bfloat16(dKs[i] * p.scale);
-      dvbase[r * p.dv_ss + c] = __float2bfloat16(dVs[i]);
+  load_rows<DP>(sK, p.k + b * p.k_sb + (long long)k0 * p.k_ss + h * p.k_sh, p.k_ss, C::KR, nk,
+                p.D, tid);
+  load_rows<DP>(sV, p.v + b * p.v_sb + (long long)k0 * p.v_ss + h * p.v_sh, p.v_ss, C::KR, nk,
+                p.D, tid);
+  for (int t = 0; t < kStages - 1; ++t) load_q(t);  // K and V travel with tile 0
+
+  bool key_ok[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) key_ok[j] = 16 * rg + g + 8 * j < nk;
+  const float sl2 = p.scale * kLog2e;
+  float dk[C::DPW / 2], dv[C::DPW / 2];
+#pragma unroll
+  for (int i = 0; i < C::DPW / 2; ++i) { dk[i] = 0.f; dv[i] = 0.f; }
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile t has landed; every warp is done with tile t - 1
+    load_q(t + kStages - 1);
+    const int st = t % kStages;
+    const uint32_t q_s = sQ(st), do_s = sdO(st);
+    const float* sts = stats(st);
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 queries
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) { s[i] = 0.f; dp[i] = 0.f; }
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t ak[4], av[4];
+      ldsm_x4(ak, sK + at<DP>(16 * rg + a_row(lane), 16 * kk + a_col(lane)));
+      ldsm_x4(av, sV + at<DP>(16 * rg + a_row(lane), 16 * kk + a_col(lane)));
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bq[4], bd[4];
+        ldsm_x4(bq, q_s + at<DP>(16 * np + bn_row(lane), 16 * kk + bn_col(lane)));
+        ldsm_x4(bd, do_s + at<DP>(16 * np + bn_row(lane), 16 * kk + bn_col(lane)));
+        mma16816(s + 8 * np, ak, bq[0], bq[1]);
+        mma16816(s + 8 * np + 4, ak, bq[2], bq[3]);
+        mma16816(dp + 8 * np, av, bd[0], bd[1]);
+        mma16816(dp + 8 * np + 4, av, bd[2], bd[3]);
+      }
+    }
+    // P^T into s, dS^T into dp: (key 16 rg + g + 8 j, query 8 nt + 2 qd + e)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * nt + 2 * qd + (e & 1);
+        const float pv =
+            key_ok[e >> 1] ? exp2f(fmaf(s[4 * nt + e], sl2, -sts[qc] * kLog2e)) : 0.f;
+        s[4 * nt + e] = pv;
+        dp[4 * nt + e] = pv * (dp[4 * nt + e] - sts[C::BQ + qc]);
+      }
+    // dV += P^T dO and dK += dS^T Q over this warp's columns
+#pragma unroll
+    for (int kk = 0; kk < C::BQ / 16; ++kk) {
+      uint32_t ap[4], ads[4];
+      acc_to_a(ap, s + 8 * kk);
+      acc_to_a(ads, dp + 8 * kk);
+#pragma unroll
+      for (int np = 0; np < C::DPW / 16; ++np) {
+        const int col = part * C::DPW + 16 * np;
+        uint32_t bd[4], bq[4];
+        ldsm_x4_t(bd, do_s + at<DP>(16 * kk + bt_row(lane), col + bt_col(lane)));
+        ldsm_x4_t(bq, q_s + at<DP>(16 * kk + bt_row(lane), col + bt_col(lane)));
+        mma16816(dv + 8 * np, ap, bd[0], bd[1]);
+        mma16816(dv + 8 * np + 4, ap, bd[2], bd[3]);
+        mma16816(dk + 8 * np, ads, bq[0], bq[1]);
+        mma16816(dk + 8 * np + 4, ads, bq[2], bq[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // rows at or past kv_len hold zeros (P = 0); rows past Skv are not stored
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = 16 * rg + g + 8 * j;
+    if (r >= nrows) continue;
+#pragma unroll
+    for (int nt = 0; nt < C::DPW / 8; ++nt) {
+      const int col = part * C::DPW + 8 * nt + 2 * qd;
+      if (col < p.D) {
+        store_pair(dkbase + r * p.dk_ss + col, dk[4 * nt + 2 * j] * p.scale,
+                   dk[4 * nt + 2 * j + 1] * p.scale);
+        store_pair(dvbase + r * p.dv_ss + col, dv[4 * nt + 2 * j], dv[4 * nt + 2 * j + 1]);
+      }
     }
   }
 }
 
-template <int DP, int BQ, int BK>
+template <int DP, int NSPLIT>
 int launch(const BwdParams& p, cudaStream_t stream) {
-  constexpr size_t smem_dq = dq_smem_bytes<DP, BQ, BK>();
-  constexpr size_t smem_dkv = dkv_smem_bytes<DP, BQ, BK>();
-  cudaError_t e = cudaFuncSetAttribute(
-      bwd_dq<DP, BQ, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(
-      bwd_dkv<DP, BQ, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkv);
-  if (e != cudaSuccess) return (int)e;
+  using Q = DqCfg<DP>;
+  using KV = DkvCfg<DP, NSPLIT>;
+  // the shared-memory limits are set once per variant
+  static cudaError_t attr_dq = cudaFuncSetAttribute(
+      bwd_dq<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, Q::SMEM);
+  static cudaError_t attr_dkv = cudaFuncSetAttribute(
+      bwd_dkv<DP, NSPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, KV::SMEM);
+  if (attr_dq != cudaSuccess) return (int)attr_dq;
+  if (attr_dkv != cudaSuccess) return (int)attr_dkv;
+  cudaError_t e;
 
   const long long rows = (long long)p.B * p.H * p.Sq;
   bwd_dsum<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dim3 grid_q((p.Sq + BQ - 1) / BQ, p.H, p.B);
-  bwd_dq<DP, BQ, BK><<<grid_q, BQ / 16 * 32, smem_dq, stream>>>(p);
+  dim3 grid_q((p.Sq + Q::BQ - 1) / Q::BQ, p.H, p.B);
+  bwd_dq<DP><<<grid_q, 256, Q::SMEM, stream>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dim3 grid_k((p.Skv + BK - 1) / BK, p.H, p.B);
-  bwd_dkv<DP, BQ, BK><<<grid_k, BK / 16 * 32, smem_dkv, stream>>>(p);
+  dim3 grid_k((p.Skv + KV::KR - 1) / KV::KR, p.H, p.B);
+  bwd_dkv<DP, NSPLIT><<<grid_k, 256, KV::SMEM, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -371,10 +457,10 @@ extern "C" int mmgt_flash_attn_bwd(
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0) return 0;
   if (B > 65535 || H > 65535) return (int)cudaErrorInvalidConfiguration;
   // the trained path's head dims: 40 -> 48, 80 -> 96, 160; a smaller d
-  // runs zero-padded in the next instantiation up
+  // runs zero-padded in the next variant up
   if (D % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (D <= 48) return launch<48, 64, 64>(p, st);
-  if (D <= 96) return launch<96, 64, 64>(p, st);
-  if (D <= 160) return launch<160, 64, 64>(p, st);
+  if (D <= 48) return launch<48, 1>(p, st);
+  if (D <= 96) return launch<96, 1>(p, st);
+  if (D <= 160) return launch<160, 2>(p, st);
   return (int)cudaErrorInvalidValue;
 }

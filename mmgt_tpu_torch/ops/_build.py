@@ -7,7 +7,10 @@ with
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
 into `mmgt_tpu_torch/_build/` (listed in .gitignore). The file name carries
-a hash of the source, so an edited source never loads a stale library.
+a hash of the source and of the shared headers (`csrc/*.cuh`), so an edited
+source never loads a stale library. No source links libcuda: K1 looks
+`cuTensorMapEncodeTiled` up through the CUDA runtime
+(`cudaGetDriverEntryPoint`).
 Every C entry returns `cudaGetLastError()` after its launch; `check` raises
 on anything but 0. Nothing here falls back to another path.
 """
@@ -62,7 +65,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared headers rebuild every source
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -41,8 +41,13 @@ def _check(got, want, ulps=2):
     assert err <= tol, (err, tol)
 
 
-@pytest.mark.parametrize("d,bank,lens", [(40, True, [300, 557]), (80, False, [300, 150]),
-                                         (160, True, None), (512, False, None)])
+# Sq = 300 and Lb = 257 end inside a tile of every variant (128 queries and
+# 128 or 64 keys for d <= 160, 64 and 64 for d = 512); kv_lens end inside a
+# self tile ([200, ...]), inside a bank tile (300 + 100) or at 0 (no key)
+@pytest.mark.parametrize("d,bank,lens", [
+    (40, True, [300, 557]), (40, True, [200, 400]), (80, False, [300, 150]),
+    (80, True, [130, 0]), (160, True, None), (160, True, [77, 450]), (512, False, None),
+    (512, True, [299, 0])])
 def test_flash_attention_kernel(gen, d, bank, lens):
     s, h = 300, 2
     q, k, v = _bf(gen, 2, s, h, d), _bf(gen, 2, s, h, d), _bf(gen, 2, s, h, d)
@@ -55,6 +60,24 @@ def test_flash_attention_kernel(gen, d, bank, lens):
     want, want_lse = A.attention_plain(q, k, v, kl, kb, vb, return_lse=True)
     _check(got, want)
     assert (lse - want_lse).abs().max().item() <= 1e-3
+    if lens is not None and 0 in lens:  # a row with no valid key gives 0
+        assert got[lens.index(0)].abs().max().item() == 0
+
+
+@pytest.mark.parametrize("d,bank", [(40, True), (80, False), (160, True)])
+def test_flash_attention_kernel_packed_qkv(gen, d, bank):
+    """Strided BSHD q/k/v taken from one packed (B, S, 3, H, D) projection,
+    as the packed JAX call sites pass them."""
+    s, h = 300, 2
+    qkv = _bf(gen, 2, s, 3, h, d)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    kb = _bf(gen, 1, 257, h, d) if bank else None
+    vb = _bf(gen, 1, 257, h, d) if bank else None
+    kl = torch.tensor([211, 557 if bank else 300], device="cuda", dtype=torch.int32)
+    got = A.flash_attention(q, k, v, kl, kb, vb)
+    want = A.attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), kl, kb, vb)
+    _check(got, want)
 
 
 @pytest.mark.parametrize("shape,act", [((3, 1000, 320), "silu"), ((2, 64, 1280), None)])
@@ -95,10 +118,13 @@ def test_motion_attention_kernel(gen, shape):
     _check(got, M.motion_attention_plain(*args))
 
 
+# ragged Sq / Skv against the 128-query and 128- or 64-key tiles, kv_lens
+# ending inside a tile, and rows with kv_len = 0
 @pytest.mark.parametrize("d,sq,skv,lens", [(40, 300, 557, [557, 123]), (40, 200, 300, [300, 0]),
-                                           (160, 130, 257, None)])
+                                           (80, 300, 600, [450, 0]), (160, 130, 257, None),
+                                           (160, 200, 400, [333, 0])])
 def test_flash_attention_backward_kernel(gen, d, sq, skv, lens):
-    """K5 against attention_bwd_plain; [300, 0] holds a row with no valid
+    """K5 against attention_bwd_plain; a 0 in lens is a row with no valid
     key (lse ~ -1e30), whose gradients must be exactly zero."""
     h = 2
     q, k, v, do = _bf(gen, 2, sq, h, d), _bf(gen, 2, skv, h, d), _bf(gen, 2, skv, h, d), \
@@ -115,6 +141,20 @@ def test_flash_attention_backward_kernel(gen, d, sq, skv, lens):
     if lens is not None and 0 in lens:
         row = lens.index(0)
         assert all(g[row].abs().max().item() == 0 for g in got)
+
+
+@pytest.mark.parametrize("d", [40, 160])
+def test_flash_attention_backward_kernel_deterministic(gen, d):
+    """Two K5 calls on the same inputs are bitwise equal (no atomics, a
+    fixed summation order)."""
+    h, sq, skv = 2, 300, 557
+    q, k, v, do = _bf(gen, 2, sq, h, d), _bf(gen, 2, skv, h, d), _bf(gen, 2, skv, h, d), \
+        _bf(gen, 2, sq, h, d)
+    kl = torch.tensor([500, 129], device="cuda", dtype=torch.int32)
+    o, lse = A.flash_attention(q, k, v, kl, return_lse=True)
+    first = A.flash_attention_bwd(q, k, v, o, do, lse, kl)
+    second = A.flash_attention_bwd(q, k, v, o, do, lse, kl)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def _grads_match(kernel, plain, inputs, gen):
