@@ -14,9 +14,10 @@ Phases, in order; any failure exits non-zero:
      function, and the bound (the larger of flops / 989 TFLOP/s and bytes /
      3.35 TB/s, each input read once and each output written once); K1 and
      K2 are also timed at the shapes of each JAX function they replace, K1
-     at the level-1 and level-2 bank shapes, K5 at the level-1 bank-concat
-     and level-0 audio self-attention shapes; two K5 calls on the same
-     inputs must be bitwise equal;
+     at the level-1 and level-2 bank shapes, K3 at the level-0 q/k/v,
+     level-0 GEGLU and level-2 audio-q shapes, K4 at levels 0, 1 and 3, K5
+     at the level-1 bank-concat and level-0 audio self-attention shapes;
+     two K5 calls on the same inputs must be bitwise equal;
   3. gradients: the autograd Functions of K1-K4 on the card against
      autograd through their plain versions, at small shapes;
   4. main: Pose2VideoPipeline at full SD1.5 width, 512x512, 16 frames (two
@@ -237,15 +238,18 @@ def check_k2(torch, N):
 
 
 def check_k3(torch, L):
+    """K3 against its plain version; every case timed with its bound and
+    the library pair F.linear(F.layer_norm(x), cat(W), cat(b))."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
-    rec = None
-    for name, rows, l, c, outs, bias in [
+    F = torch.nn.functional
+    rec, rows = None, {}
+    for name, nrow, l, c, outs, bias in [
         ("L0 q/k/v (48 rows)", 48, 4096, 320, [320, 320, 320], False),
         ("L0 GEGLU", 48, 4096, 320, [2560], True),
         ("L2 3 audio q", 24, 256, 1280, [1280, 1280, 1280], False),
     ]:
-        x = torch.randn(rows, l, c, generator=g, device=dev).to(torch.bfloat16)
+        x = torch.randn(nrow, l, c, generator=g, device=dev).to(torch.bfloat16)
         gam = (1 + 0.1 * torch.randn(c, generator=g, device=dev)).to(torch.bfloat16)
         bet = (0.1 * torch.randn(c, generator=g, device=dev)).to(torch.bfloat16)
         ws = [(torch.randn(n, c, generator=g, device=dev) / math.sqrt(c)).to(torch.bfloat16)
@@ -258,24 +262,30 @@ def check_k3(torch, L):
         tol = max(ulp_tol(w_) for w_ in want)
         log(f"K3 {name}: max_abs_err {err:.3e} (tol {tol:.3e}, 2 bf16 ulps)")
         require(math.isfinite(err) and err <= tol, f"K3 {name}: err {err} > {tol}")
+        wcat = torch.cat(ws, 0)
+        bcat = torch.cat(bs, 0) if bias else None
+        m = nrow * l
+        row = time_row(
+            lambda: L.ln_projections(x, gam, bet, ws, bs, 1e-5),
+            lambda: L.ln_projections_plain(x, gam, bet, ws, bs, 1e-5),
+            lambda: F.linear(F.layer_norm(x, (c,), gam, bet, 1e-5), wcat, bcat),
+            2.0 * m * c * sum(outs), nbytes(x, gam, bet, *ws, *bs, *got),
+            f"{name}: x {tuple(x.shape)}, W {[(n, c) for n in outs]}")
+        row["max_abs_err"] = err
+        rows[name] = row
         if rec is None:
-            ms = time_ms(lambda: L.ln_projections(x, gam, bet, ws, bs, 1e-5))
-            plain_ms = time_ms(lambda: L.ln_projections_plain(x, gam, bet, ws, bs, 1e-5),
-                               iters=3)
-            wcat = torch.cat(ws, 0)
-            F = torch.nn.functional
-            lib_ms = time_ms(lambda: F.linear(F.layer_norm(x, (c,), gam, bet, 1e-5), wcat))
-            m = rows * l
-            bms, by = bound_ms(2.0 * m * c * sum(outs), nbytes(x, gam, bet, *ws, *got))
-            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=bms, bound_by=by, shape=f"{name}: x {tuple(x.shape)}")
+            rec = dict(row, rows=rows)
+        del x, got, want
+        torch.cuda.empty_cache()
     return rec
 
 
 def check_k4(torch, M):
+    """K4 against its plain version, every case timed with its bound (no
+    single PyTorch call computes the function)."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    rec = None
+    rec, rows = None, {}
     for name, shape in [("L0 (4 rows)", (4, 12, 4096, 320)), ("L1", (4, 12, 1024, 640)),
                         ("L3 / mid, 64 tokens", (4, 12, 64, 1280))]:
         b, f, l, c = shape
@@ -292,14 +302,17 @@ def check_k4(torch, M):
         err, tol = max_err(got, want), ulp_tol(want)
         log(f"K4 {name}: max_abs_err {err:.3e} (tol {tol:.3e}, 2 bf16 ulps)")
         require(math.isfinite(err) and err <= tol, f"K4 {name}: err {err} > {tol}")
+        m = b * f * l
+        row = time_row(lambda: M.motion_attention(*args),
+                       lambda: M.motion_attention_plain(*args), None,
+                       2.0 * m * c * c * 4 + 4.0 * b * l * f * f * c,
+                       nbytes(x, gam, bet, pe, *ws, bo, got), f"{name}: x {shape}, 8 heads")
+        row["max_abs_err"] = err
+        rows[name] = row
         if rec is None:
-            ms = time_ms(lambda: M.motion_attention(*args))
-            plain_ms = time_ms(lambda: M.motion_attention_plain(*args), iters=3)
-            m = b * f * l
-            flops = 2.0 * m * c * c * 4 + 4.0 * b * l * f * f * c
-            bms, by = bound_ms(flops, nbytes(x, gam, bet, pe, *ws, bo, got))
-            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                       bound_ms=bms, bound_by=by, shape=f"{name}: x {shape}")
+            rec = dict(row, rows=rows)
+        del x, got, want
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -544,8 +557,9 @@ PROFILE_FAMILIES = (
     ("K1 flash_fwd", ("flash_fwd",)),
     ("K5 bwd_dsum + bwd_dq + bwd_dkv", ("bwd_dsum", "bwd_dq", "bwd_dkv")),
     ("K2 gn_*", ("gn_partial", "gn_stats", "gn_apply")),
-    ("K3/K4 ln_gemm + ln_stats", ("ln_gemm", "ln_stats")),
-    ("K4 frame_attn", ("frame_attn",)),
+    ("K3 and K4's W_o: ln_gemm", ("ln_gemm",)),
+    ("K4 kernel A: motion_attn", ("motion_attn",)),
+    ("K4 LayerNorm + pe: ln_pe", ("ln_pe",)),
     ("cuDNN convolution", ("fprop", "conv", "dgrad", "wgrad")),
     ("cuBLAS GEMM (Linear, einsum)", ("nvjet", "gemm", "cutlass", "Kernel2")),
 )

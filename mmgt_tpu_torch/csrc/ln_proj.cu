@@ -1,156 +1,309 @@
 // K3: LayerNorm fused into 1-3 projections, for Hopper (sm_90a), bf16.
 //
-// Replaces the TPU kernel mmgt_tpu/ops/fused_ln.py:_ln_proj_kernel:
+// Replaces the TPU kernel mmgt_tpu/ops/fused_ln.py:_ln_proj_kernel
+// (reached by _ln_proj_fwd, :62):
 //     y_i = (LN(x) * gamma + beta) @ W_i^T + b_i,   i < 3,
 // with f32 row statistics (eps inside the rsqrt), the normalised row
 // rounded to bf16 before the product (as the TPU kernel rounds x_n to the
-// weight dtype) and f32 accumulation; the bias is added in f32 in the
-// epilogue. Two launches: a row-statistics pass (one warp per row, two-pass
-// mean/variance like the reference math) and a tiled GEMM whose A-tile
-// loader normalises x as it stages it into shared memory, so the normalised
-// tensor never reaches device memory. One launch covers all weights
-// (grid.z = weight index).
+// weight dtype) and f32 accumulation; the bias (and, for K4's output
+// projection, a bf16 residual) is added in f32 in the epilogue. Without
+// gamma the same kernel is a plain GEMM (K4's W_o, csrc/motion_attn.cu's
+// caller).
 //
-// The same GEMM serves K4 (csrc/motion_attn.cu's caller): its prologue can
-// add a per-frame positional row (pe[(m / L) % F]) after the affine, each
-// output can be written in f32 (q/k of the motion attention stay f32), and
-// its epilogue can add a residual.
+// Bound on the H100 (989 TFLOP/s bf16, 3.35 TB/s): bytes at the level-0
+// q/k/v shape (x (48, 4096, 320) against 3 x (320, 320): 503 MB moved,
+// 0.150 ms; 0.121 ms of operations), bytes and operations alike at GEGLU
+// (N = 2560: 0.338 ms of bytes, 0.326 ms of operations), operations at the
+// level-2 audio q (x (6144, 1280) against 3 x (1280, 1280): 0.061 ms).
 //
-// Bound: M = rows x tokens is 10^4..10^5 and N, C are 320..10240, so the
-// product dominates (2*M*C*N flops vs (M*C + C*N + M*N)*2 bytes): operations
-// bound it at the path's shapes. Design: 64x64 output tiles, 32-deep K
-// steps, four warps each holding a 32x32 f32 accumulator in WMMA bf16
-// fragments; A and W tiles load as 16-byte vectors (C % 8 == 0 is required).
-// A first kernel that is right and simple: no cp.async/TMA pipelining yet.
+// Design: the TPU kernel's, one x block against every weight
+// (mmgt_tpu/ops/fused_ln.py:37-56).
+//   * Row stripe resident: a block owns BM rows of x and loads the whole
+//     stripe once by TMA (2-D map, 64-column boxes, 128-byte swizzle) into
+//     shared memory: BM = 128 where the stripe leaves room for the output
+//     staging and a ring of at least two weight tiles (K <= 576: 80 KB at
+//     K = 320), else BM = 64 (K = 640 and 1280: 80 and 160 KB). The
+//     consumers compute each row's f32 mean and rstd from shared memory (2
+//     or 4 threads a row, two passes as the reference), normalise the stripe
+//     in place to bf16 in the same swizzled layout, once, and fence the
+//     generic proxy before wgmma reads it. No statistics launch; x is read
+//     from device memory once.
+//   * Weights streamed: one producer thread walks the (N tile, 64-deep k
+//     chunk) pairs of every weight of the call and loads BN x 64 tiles
+//     (BN = 160, torch's (N, K) layout, so both operands are K-major)
+//     through a ring of as many 20 KB stages as fit (5 at K = 320, 6 at
+//     640, 2 at 1280; at most 8), guarded by full/empty mbarriers.
+//   * Two consumer warpgroups run SS wgmma against the resident stripe,
+//     one committed group kept in flight: at BM = 128 each owns 64 rows x
+//     160 columns (m64n160k16, 80 f32 registers a thread); at BM = 64 both
+//     own the 64 rows and split the columns (m64n80k16).
+//   * Epilogue: the f32 bias (and a residual, loaded by TMA into the same
+//     tile first) is added in registers, the bf16 result written to the
+//     warpgroup's 64 x 160 (or 80) staging tile and stored by one TMA
+//     store, which clips the ragged edges; the next tile's epilogue waits
+//     only until that store has read the staging tile. Stores straight
+//     from the registers, a staging tile copied out by the threads, and
+//     80-column halves through one buffer all wrote GEGLU's 1 GB output
+//     more slowly on the card.
+//   * Registers: setmaxnreg 240 for the consumers, 24 for the producer.
+//   * Grid: (row stripes, N splits). Where the stripes alone fill less than
+//     two waves of 132 SMs, the N tiles are split over several blocks per
+//     stripe (the stripe is then re-read, from L2). The tile plan (BM, ring
+//     depth, splits, shared-memory bytes) is computed in Python
+//     (mmgt_tpu_torch/ops/fused_ln.py:gemm_plan) and checked here.
+//   * What bounds it (PERF.md): at 64-row stripes every weight byte brought
+//     into an SM feeds only 64 rows, so the SM needs 64 bytes of weights a
+//     clock to keep the tensor cores busy, and at K = 1280 only 2 ring
+//     stages fit beside the stripe, too few to cover L2's latency; the
+//     level-2 audio q runs several times slower than F.layer_norm +
+//     F.linear there (chip_smoke.py). A cluster that splits K over 2-4 CTAs
+//     (128-row stripes of 320 columns each) is the next step (ROADMAP).
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+
 typedef __nv_bfloat16 bf16;
+using namespace hopper;
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 32, LDS = BK + 8, LDC = BN + 4, NT = 128;
+constexpr int kThreads = 384;               // 2 consumer warpgroups + 1 producer
+constexpr int BN = 160;                     // output columns of a tile
+constexpr int kSpan = 64;                   // bf16 columns of one 128-byte swizzle span
+constexpr int kStageBytes = BN * 128;       // one BN x 64 weight tile
+constexpr int kMaxSmem = 232448;            // 227 KB a block
 
-__global__ void ln_stats(const bf16* __restrict__ x, float* __restrict__ stats,
-                         int M, int K, float eps) {
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (warp >= M) return;
-  const bf16* row = x + (long long)warp * K;
-  float s = 0.f;
-  for (int c = lane; c < K; c += 32) s += __bfloat162float(row[c]);
-  for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  const float mean = s / K;
-  float v = 0.f;
-  for (int c = lane; c < K; c += 32) {
-    const float d = __bfloat162float(row[c]) - mean;
-    v += d * d;
-  }
-  for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  if (lane == 0) {
-    stats[2 * (long long)warp] = mean;
-    stats[2 * (long long)warp + 1] = rsqrtf(v / K + eps);
-  }
+// columns of one consumer warpgroup's 64-row output tile
+__host__ __device__ constexpr int wg_cols(int bm) { return bm == 128 ? BN : BN / 2; }
+__host__ __device__ inline int smem_bytes(int bm, int kchunks, int stages) {
+  return 1024 + kchunks * bm * 128 + 2 * 64 * wg_cols(bm) * 2 + stages * kStageBytes +
+         8 * (2 * stages + 3);
 }
 
 struct GemmParams {
-  const bf16* x;
-  const float* stats;   // (M, 2) mean, rstd; null: A is used as it is
-  const float* gamma;   // (K,)
-  const float* beta;    // (K,)
-  const float* pe;      // (F, K) added after the affine; null: none
-  int M, K, L, F;
-  const bf16* w[3];     // (N_i, K) row-major, torch Linear layout
-  int n[3];
-  const float* bias[3]; // (N_i,) or null
-  const bf16* res[3];   // (M, N_i) or null
-  void* out[3];         // (M, N_i)
-  int out_f32[3];
+  CUtensorMap tx;          // x (M, K): boxes 64 x BM, 128-byte swizzle
+  CUtensorMap tw[3];       // W_i (N_i, K): boxes 64 x BN, 128-byte swizzle
+  CUtensorMap to[3];       // out_i (M, N_i): boxes BNW x 64, no swizzle
+  CUtensorMap tr[3];       // residual_i (M, N_i), as to[i]
+  const float* gamma;      // (K,) f32; null: x is used as it is
+  const float* beta;       // (K,) f32
+  const float* bias[3];    // (N_i,) f32 or null
+  int n[3], tiles[3], has_res[3];  // N_i, its BN tiles, whether a residual is added
+  int M, K, kchunks, stages, nsplit, total;
+  float eps;
 };
 
-__global__ void __launch_bounds__(NT) ln_gemm(GemmParams p) {
-  __shared__ __align__(128) bf16 As[BM * LDS];
-  __shared__ __align__(128) bf16 Bs[BN * LDS];
-  __shared__ __align__(128) float Cs[BM * LDC];
+__device__ __forceinline__ void tile_of(const GemmParams& p, int t, int& wi, int& nt) {
+  wi = 0;
+  while (t >= p.tiles[wi]) t -= p.tiles[wi++];
+  nt = t;
+}
 
-  const int wi = blockIdx.z;
-  const int N = p.n[wi];
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  if (n0 >= N) return;
-  const bf16* __restrict__ W = p.w[wi];
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
+// 16-byte chunk `ch` (columns 8 ch .. 8 ch + 7) of stripe row r
+__device__ __forceinline__ uint32_t stripe_off(int bm, int r, int ch) {
+  return (uint32_t)((ch >> 3) * bm * 128 + r * 128 + (((ch & 7) ^ (r & 7)) << 4));
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < p.K; k0 += BK) {
-    // A tile: 64 rows x 32 cols = 256 vectors of 8, two per thread
-    for (int i = tid; i < BM * BK / 8; i += NT) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const int m = m0 + r, k = k0 + c;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (m < p.M && k < p.K) {
-        raw = *reinterpret_cast<const uint4*>(p.x + (long long)m * p.K + k);
-        if (p.stats) {
-          const float mean = p.stats[2 * (long long)m], rstd = p.stats[2 * (long long)m + 1];
-          const float* per = p.pe ? p.pe + (long long)((m / p.L) % p.F) * p.K + k : nullptr;
-          bf16* e = reinterpret_cast<bf16*>(&raw);
+// LayerNorm of the stripe in place: 256 / BM neighbouring consumer threads
+// share a row (its 16-byte chunks interleaved among them); f32 mean and
+// variance in two passes over shared memory, then y = (x - mean) * rstd *
+// gamma + beta rounded to bf16. Columns past K stay zero (TMA's fill); rows
+// past M are normalised too but never stored.
+template <int BM>
+__device__ void normalise_stripe(const GemmParams& p, uint8_t* sa) {
+  constexpr int TPR = 256 / BM;
+  const int r = threadIdx.x / TPR, sub = threadIdx.x % TPR;
+  const int nch = p.K / 8;
+  float s = 0.f;
+  for (int ch = sub; ch < nch; ch += TPR) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(sa + stripe_off(BM, r, ch));
+    const bf16* e = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
-          for (int t = 0; t < 8; ++t) {
-            float y = (__bfloat162float(e[t]) - mean) * rstd * p.gamma[k + t] + p.beta[k + t];
-            if (per) y += per[t];
-            e[t] = __float2bfloat16(y);
-          }
-        }
-      }
-      *reinterpret_cast<uint4*>(As + r * LDS + c) = raw;
-    }
-    // W tile: 64 output rows x 32 cols
-    for (int i = tid; i < BN * BK / 8; i += NT) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const int n = n0 + r, k = k0 + c;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (n < N && k < p.K) raw = *reinterpret_cast<const uint4*>(W + (long long)n * p.K + k);
-      *reinterpret_cast<uint4*>(Bs + r * LDS + c) = raw;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[2];
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * LDS + kk * 16, LDS);
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + (wn * 32 + j * 16) * LDS + kk * 16, LDS);
-      for (int i = 0; i < 2; ++i)
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
+    for (int i = 0; i < 8; ++i) s += __bfloat162float(e[i]);
   }
+#pragma unroll
+  for (int off = TPR / 2; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  const float mean = s / p.K;
+  float v = 0.f;
+  for (int ch = sub; ch < nch; ch += TPR) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(sa + stripe_off(BM, r, ch));
+    const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float d = __bfloat162float(e[i]) - mean;
+      v += d * d;
+    }
+  }
+#pragma unroll
+  for (int off = TPR / 2; off; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  const float rstd = rsqrtf(v / p.K + p.eps);
+  for (int ch = sub; ch < nch; ch += TPR) {
+    uint4* at = reinterpret_cast<uint4*>(sa + stripe_off(BM, r, ch));
+    uint4 raw = *at;
+    bf16* e = reinterpret_cast<bf16*>(&raw);
+    const float4* g4 = reinterpret_cast<const float4*>(p.gamma + 8 * ch);
+    const float4* b4 = reinterpret_cast<const float4*>(p.beta + 8 * ch);
+    const float4 g0 = __ldg(g4), g1 = __ldg(g4 + 1), b0 = __ldg(b4), b1 = __ldg(b4 + 1);
+    const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      e[i] = __float2bfloat16((__bfloat162float(e[i]) - mean) * rstd * g[i] + b[i]);
+    *at = raw;
+  }
+}
 
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, acc[i][j],
-                              LDC, wmma::mem_row_major);
+// bias (+ residual) of one warpgroup's 64 x BNW accumulator into its bf16
+// staging tile (row-major), then one TMA store of the tile (rows and
+// columns past the output's edge are not written). The residual, where
+// there is one, is loaded into the staging tile by TMA first. stg: the
+// staging tile's shared address and generic pointer; rbar, rphase: the
+// residual-load barrier and its parity.
+template <int BNW>
+__device__ __forceinline__ void epilogue(const GemmParams& p, const float* acc, int wi, int row0,
+                                         int col0, uint32_t stg, uint8_t* stg_ptr, uint32_t rbar,
+                                         uint32_t& rphase) {
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, q = lane & 3;
+  const bool leader = threadIdx.x % 128 == 0;
+  const int N = p.n[wi];
+  const float* bias = p.bias[wi];
+  const bool res = p.has_res[wi];
+  // the previous tile's store has read the staging tile
+  if (leader) bulk_wait_read();
+  named_sync(2 + wg, 128);
+  if (res) {
+    if (leader) {
+      mbar_expect_tx(rbar, 64 * BNW * 2);
+      tma_load_2d(stg, &p.tr[wi], rbar, col0, row0);
+    }
+    mbar_wait(rbar, rphase);
+    rphase ^= 1;
+  }
+  bf16* tile = reinterpret_cast<bf16*>(stg_ptr);
+#pragma unroll
+  for (int c = 0; c < BNW / 8; ++c) {
+    const int col = 8 * c + 2 * q;
+    float2 bb = make_float2(0.f, 0.f);
+    if (bias && col0 + col < N) bb = __ldg(reinterpret_cast<const float2*>(bias + col0 + col));
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int row = 16 * warp + g + 8 * j;
+      __nv_bfloat162* at = reinterpret_cast<__nv_bfloat162*>(tile + row * BNW + col);
+      float y0 = acc[4 * c + 2 * j] + bb.x, y1 = acc[4 * c + 2 * j + 1] + bb.y;
+      if (res) {
+        const float2 r = __bfloat1622float2(*at);
+        y0 += r.x;
+        y1 += r.y;
+      }
+      *at = __floats2bfloat162_rn(y0, y1);
+    }
+  }
+  fence_proxy_async();
+  named_sync(2 + wg, 128);
+  if (leader) {
+    tma_store_2d(&p.to[wi], stg, col0, row0);
+    bulk_commit();
+  }
+}
+
+template <int BM>
+__global__ void __launch_bounds__(kThreads, 1) ln_gemm(const __grid_constant__ GemmParams p) {
+  constexpr int BNW = wg_cols(BM);
+  constexpr int STG = 64 * BNW * 2;  // one warpgroup's staging tile
+  extern __shared__ uint8_t smem_raw[];
+  // swizzled tiles want 1024-byte aligned bases
+  uint8_t* base_ptr = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sA = smem_u32(base_ptr);
+  const uint32_t sStg = sA + p.kchunks * BM * 128;
+  const uint32_t sB = sStg + 2 * STG;
+  const uint32_t bars = sB + p.stages * kStageBytes;
+  const int stages = p.stages;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (stages + s); };
+  const uint32_t abar = bars + 16u * stages;
+  const int m0 = blockIdx.x * BM;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // one arrival per consumer warp
+    }
+    mbar_init(abar, 1);
+    mbar_init(abar + 8, 1);   // residual loads of warpgroup 0
+    mbar_init(abar + 16, 1);  // and 1
+    mbar_fence_init();
+  }
   __syncthreads();
 
-  const float* bias = p.bias[wi];
-  const bf16* res = p.res[wi];
-  for (int i = tid; i < BM * BN; i += NT) {
-    const int r = i / BN, c = i % BN;
-    const int m = m0 + r, n = n0 + c;
-    if (m >= p.M || n >= N) continue;
-    float y = Cs[r * LDC + c];
-    if (bias) y += bias[n];
-    const long long off = (long long)m * N + n;
-    if (res) y += __bfloat162float(res[off]);
-    if (p.out_f32[wi]) reinterpret_cast<float*>(p.out[wi])[off] = y;
-    else reinterpret_cast<bf16*>(p.out[wi])[off] = __float2bfloat16(y);
+  if (threadIdx.x >= 256) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(abar, (uint32_t)(p.kchunks * BM * 128));
+      for (int kc = 0; kc < p.kchunks; ++kc)
+        tma_load_2d(sA + kc * BM * 128, &p.tx, abar, kc * kSpan, m0);
+      int it = 0;
+      for (int t = blockIdx.y; t < p.total; t += p.nsplit) {
+        int wi, nt;
+        tile_of(p, t, wi, nt);
+        for (int kc = 0; kc < p.kchunks; ++kc, ++it) {
+          const int s = it % stages;
+          mbar_wait(empty(s), ((it / stages) & 1) ^ 1);
+          mbar_expect_tx(full(s), kStageBytes);
+          tma_load_2d(sB + s * kStageBytes, &p.tw[wi], full(s), kc * kSpan, nt * BN);
+        }
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+    const int arow = BM == 128 ? 64 * wg : 0;   // the warpgroup's first stripe row
+    const int bcol = BM == 128 ? 0 : BNW * wg;  // and first column of the tile
+    const uint32_t stg = sStg + wg * STG;  // this warpgroup's staging tile
+    uint8_t* stg_ptr = base_ptr + (stg - sA);
+    const uint32_t rbar = abar + 8u * (1 + wg);
+    uint32_t rphase = 0;
+    auto release = [&](uint32_t bar) {  // a consumed weight stage is free again
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    mbar_wait(abar, 0);
+    if (p.gamma) {
+      normalise_stripe<BM>(p, base_ptr);
+      fence_proxy_async();
+      named_sync(1, 256);
+    }
+    float acc[BNW / 2];
+    int it = 0;
+    for (int t = blockIdx.y; t < p.total; t += p.nsplit) {
+      int wi, nt;
+      tile_of(p, t, wi, nt);
+      for (int kc = 0; kc < p.kchunks; ++kc, ++it) {
+        const int s = it % stages;
+        mbar_wait(full(s), (it / stages) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<BNW>(acc, make_desc<128>(sA + kc * BM * 128 + arow * 128 + kk * 32, 16),
+                        make_desc<128>(sB + s * kStageBytes + bcol * 128 + kk * 32, 16),
+                        kc > 0 || kk > 0);
+        wgmma_commit();
+        // the previous chunk's group is done: its weight stage is free
+        wgmma_wait<1>();
+        fence_regs<BNW / 2>(acc);
+        if (kc > 0) release(empty((it - 1) % stages));
+      }
+      wgmma_wait_all();
+      fence_regs<BNW / 2>(acc);
+      release(empty((it - 1) % stages));
+      epilogue<BNW>(p, acc, wi, m0 + arow, nt * BN + bcol, stg, stg_ptr, rbar, rphase);
+    }
+    if (threadIdx.x % 128 == 0) bulk_wait();
   }
 }
 
@@ -160,43 +313,57 @@ extern "C" const char* mmgt_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-extern "C" int mmgt_ln_stats(const void* x, void* stats, int M, int K, float eps,
-                             void* stream) {
-  if (M <= 0) return 0;
-  const int threads = 256;
-  const long long blocks = ((long long)M * 32 + threads - 1) / threads;
-  ln_stats<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, (float*)stats, M, K, eps);
-  return (int)cudaGetLastError();
-}
-
+// One launch for all weights of the call. gamma/beta null: no LayerNorm.
+// (bm, stages, nsplit, smem) is the Python tile plan, checked here.
 extern "C" int mmgt_ln_gemm(
-    const void* x, const void* stats, const void* gamma, const void* beta, const void* pe,
-    int M, int K, int L, int F, int nw,
+    const void* x, const void* gamma, const void* beta, int M, int K, float eps, int nw,
     const void* w0, const void* w1, const void* w2, int n0, int n1, int n2,
     const void* b0, const void* b1, const void* b2,
     const void* r0, const void* r1, const void* r2,
-    void* o0, void* o1, void* o2, int f32_mask, void* stream) {
-  if (nw < 1 || nw > 3 || (K % 8) != 0) return (int)cudaErrorInvalidValue;
+    void* o0, void* o1, void* o2, int bm, int stages, int nsplit, int smem, void* stream) {
+  if (nw < 1 || nw > 3 || K <= 0 || (K % 8) != 0 || (bm != 64 && bm != 128))
+    return (int)cudaErrorInvalidValue;
   if (M <= 0) return 0;
   GemmParams p;
-  p.x = (const bf16*)x; p.stats = (const float*)stats;
-  p.gamma = (const float*)gamma; p.beta = (const float*)beta; p.pe = (const float*)pe;
-  p.M = M; p.K = K; p.L = L > 0 ? L : 1; p.F = F > 0 ? F : 1;
+  p.kchunks = (K + kSpan - 1) / kSpan;
+  if (stages < 2 || smem != smem_bytes(bm, p.kchunks, stages) || smem > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
   const void* ws[3] = {w0, w1, w2};
   const int ns[3] = {n0, n1, n2};
   const void* bs[3] = {b0, b1, b2};
   const void* rs[3] = {r0, r1, r2};
   void* os[3] = {o0, o1, o2};
-  int nmax = 0;
+  const int bnw = bm == 128 ? wg_cols(128) : wg_cols(64);
+  p.total = 0;
   for (int i = 0; i < 3; ++i) {
-    p.w[i] = (const bf16*)ws[i]; p.n[i] = i < nw ? ns[i] : 0;
-    p.bias[i] = (const float*)bs[i]; p.res[i] = (const bf16*)rs[i];
-    p.out[i] = os[i]; p.out_f32[i] = (f32_mask >> i) & 1;
-    if (p.n[i] > nmax) nmax = p.n[i];
+    const int j = i < nw ? i : 0;  // unused slots repeat weight 0's maps
+    if (ns[j] <= 0 || ns[j] % 8 != 0) return (int)cudaErrorInvalidValue;
+    p.n[i] = i < nw ? ns[i] : 0;
+    p.tiles[i] = i < nw ? (ns[i] + BN - 1) / BN : 0;
+    p.bias[i] = i < nw ? (const float*)bs[i] : nullptr;
+    p.has_res[i] = i < nw && rs[i] != nullptr;
+    p.total += p.tiles[i];
+    if (!make_map_2d(&p.tw[i], ws[j], ns[j], K, BN) ||
+        !make_map_2d(&p.to[i], os[j], M, ns[j], 64, bnw, 0) ||
+        !make_map_2d(&p.tr[i], rs[j] ? rs[j] : os[j], M, ns[j], 64, bnw, 0))
+      return (int)cudaErrorInvalidValue;
   }
-  dim3 grid((M + BM - 1) / BM, (nmax + BN - 1) / BN, nw);
-  if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
-  ln_gemm<<<grid, NT, 0, (cudaStream_t)stream>>>(p);
+  if (nsplit < 1 || nsplit > p.total || nsplit > 65535) return (int)cudaErrorInvalidValue;
+  if (!make_map_2d(&p.tx, x, M, K, bm)) return (int)cudaErrorInvalidValue;
+  p.gamma = (const float*)gamma; p.beta = (const float*)beta;
+  p.M = M; p.K = K; p.stages = stages; p.nsplit = nsplit; p.eps = eps;
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((M + bm - 1) / bm, nsplit);
+  if (bm == 128) {
+    static cudaError_t attr = cudaFuncSetAttribute(
+        ln_gemm<128>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (attr != cudaSuccess) return (int)attr;
+    ln_gemm<128><<<grid, kThreads, smem, st>>>(p);
+  } else {
+    static cudaError_t attr = cudaFuncSetAttribute(
+        ln_gemm<64>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (attr != cudaSuccess) return (int)attr;
+    ln_gemm<64><<<grid, kThreads, smem, st>>>(p);
+  }
   return (int)cudaGetLastError();
 }

@@ -8,9 +8,9 @@ with
 
 into `mmgt_tpu_torch/_build/` (listed in .gitignore). The file name carries
 a hash of the source and of the shared headers (`csrc/*.cuh`), so an edited
-source never loads a stale library. No source links libcuda: K1 looks
-`cuTensorMapEncodeTiled` up through the CUDA runtime
-(`cudaGetDriverEntryPoint`).
+source never loads a stale library. No source links libcuda: K1, K3 and K4
+look `cuTensorMapEncodeTiled` up through the CUDA runtime
+(`cudaGetDriverEntryPoint`, csrc/hopper.cuh).
 Every C entry returns `cudaGetLastError()` after its launch; `check` raises
 on anything but 0. Nothing here falls back to another path.
 """
@@ -45,12 +45,12 @@ SIGNATURES = {
         "mmgt_flash_attn_bwd": [VP] * 11 + [LL] * 24 + [INT] * 5 + [FLT, VP],
     },
     "ln_proj": {
-        "mmgt_ln_stats": [VP, VP, INT, INT, FLT, VP],
-        "mmgt_ln_gemm": [VP] * 5 + [INT] * 5 + [VP] * 3 + [INT] * 3 + [VP] * 9
-        + [INT, VP],
+        "mmgt_ln_gemm": [VP] * 3 + [INT] * 2 + [FLT, INT] + [VP] * 3 + [INT] * 3 + [VP] * 9
+        + [INT] * 4 + [VP],
     },
     "motion_attn": {
-        "mmgt_frame_attn": [VP] * 4 + [INT] * 5 + [FLT, VP],
+        "mmgt_ln_pe": [VP] * 5 + [LL] + [INT] * 3 + [FLT, VP],
+        "mmgt_motion_attn": [VP] * 5 + [INT] * 5 + [FLT] + [INT] * 4 + [VP],
     },
 }
 

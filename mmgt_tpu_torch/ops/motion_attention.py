@@ -10,13 +10,17 @@ the projection, f32 logits and softmax, probabilities rounded to the
 compute dtype, P . V summed in f32.
 
 K4 replaces the TPU kernel mmgt_tpu/ops/motion_attention.py:_motion_kernel
-with the port's own launches: csrc/ln_proj.cu's row statistics and its GEMM
-with an LN + pe prologue (q/k written in f32, v in bf16), the frame
-attention of csrc/motion_attn.cu (one warp per (row, token, head); bound by
-bytes), and the GEMM again with a bias + residual epilogue for W_o. It
-takes every token count L (the TPU's L % 128 == 0 and d % 8 == 0 gates
-were tiling rules). Bound on the H100 for the whole: operations at level 0
-(the four C x C products), bytes in the frame-attention part.
+with three launches: `ln_pe` (csrc/motion_attn.cu), which writes the
+bf16-rounded LN(x) * gamma + beta + pe row that the products take; kernel A
+(csrc/motion_attn.cu `motion_attn`), one block per (head, block of Lt
+tokens, row), which runs the head's q/k/v projections on wgmma (TMA-fed)
+and the frame attention from shared memory, and writes only the attention
+output o; and K3's GEMM (csrc/ln_proj.cu) without LayerNorm for W_o, with
+the f32 bias and the residual. q and k never reach device memory. The plan
+of kernel A (`attn_plan`) is computed here and checked by its C entry. It
+takes every token count L and up to 32 frames (the TPU's L % 128 == 0 gate
+was a tiling rule); the head dims are those of `_HEAD_DIMS`. Bound on the
+H100 for the whole: operations at level 0 (the four C x C products).
 
 On a CPU tensor `motion_attention` runs `motion_attention_plain`; on a
 CUDA tensor it launches K4 or raises. Gradients: the forward still runs K4
@@ -31,7 +35,7 @@ import torch
 
 from mmgt_tpu_torch.ops import _build
 from mmgt_tpu_torch.ops._vjp import kernel_with_plain_vjp, needs_grad
-from mmgt_tpu_torch.ops.fused_ln import ln_gemm, row_stats
+from mmgt_tpu_torch.ops.fused_ln import ln_gemm
 
 LAUNCHES = 0  # K4 launches (one per motion_attention call on the card)
 
@@ -70,27 +74,84 @@ def motion_attention_plain(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads: int,
     return out.to(cdt)
 
 
+# kernel A's plan (csrc/motion_attn.cu): rows, tokens a block, ring depth
+SMEM_LIMIT = 232448   # 227 KB a block on the H100
+TWO_BLOCKS = 115712   # two blocks an SM: (228 KB - 2 x 1 KB reserved) / 2
+_PAD = 4              # f32 padding of a staged q/k/v row
+_HEAD_DIMS = (16, 32, 40, 64, 80, 96, 128, 160)
+_MAX_CHANNELS = 2048  # ln_pe holds a row in one warp's registers
+
+
+def attn_smem(rp: int, d: int, stages: int, frames: int, lt: int) -> int:
+    """Shared-memory bytes of a kernel-A block (as `attn_smem` in
+    csrc/motion_attn.cu): alignment slack, the ring of (h chunk, W_q, W_k,
+    W_v chunks) stages or the staged q/k/v that alias it, the (Lt, F, F)
+    probabilities and the mbarriers."""
+    ring = stages * (rp * 128 + 3 * d * 128)
+    region = max(ring, 3 * rp * (d + _PAD) * 4)
+    probs = -(-lt * frames * frames * 4 // 16) * 16
+    return 1024 + region + probs + 8 * stages
+
+
+def attn_plan(frames: int, tokens: int, channels: int, heads: int) -> dict:
+    """Kernel A's plan for x (B, F, L, C): RP = 128 rows a block (two
+    warpgroups of 64 rows) for d <= 96, else 64 (the warpgroups split the
+    head's columns); Lt = RP // F tokens (frame-major rows f Lt + t, the rest
+    padding); the deepest ring (2-4 stages) that lets two blocks share an
+    SM, else the deepest that fits one. Raises on a shape it does not take."""
+    d = channels // heads
+    if channels != heads * d or d not in _HEAD_DIMS or channels % 8 != 0:
+        raise ValueError(f"K4 takes C = heads * d with d in {_HEAD_DIMS}, got C = {channels}, "
+                         f"{heads} heads")
+    if not 1 <= frames <= 32:
+        raise ValueError(f"K4 takes 1 to 32 frames, got {frames}")
+    if channels > _MAX_CHANNELS:
+        raise ValueError(f"K4's LayerNorm pre-pass takes C <= {_MAX_CHANNELS}, got {channels}")
+    rp = 128 if d <= 96 else 64
+    lt = max(1, min(rp // frames, tokens))
+    fits = [s for s in (4, 3, 2) if attn_smem(rp, d, s, frames, lt) <= TWO_BLOCKS]
+    if not fits:
+        fits = [s for s in (4, 3, 2) if attn_smem(rp, d, s, frames, lt) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"K4: no plan fits {SMEM_LIMIT} bytes at d = {d}, {frames} frames")
+    stages = fits[0]
+    return dict(rp=rp, lt=lt, stages=stages, smem=attn_smem(rp, d, stages, frames, lt))
+
+
+def ln_pe(x, gamma, beta, pe, eps: float):
+    """h = bf16(LN(x) * gamma + beta + pe[f]) for x (B, F, L, C) bf16, as
+    one (B F L, C) matrix (csrc/motion_attn.cu `ln_pe`)."""
+    b, f, l, c = x.shape
+    h = torch.empty((b * f * l, c), dtype=torch.bfloat16, device=x.device)
+    lib = _build.load("motion_attn")
+    rc = lib.mmgt_ln_pe(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), pe.data_ptr(),
+                        h.data_ptr(), b * f * l, l, f, c, float(eps), _build.stream_ptr(x))
+    _build.check(lib, rc, "LayerNorm + pe (K4)")
+    return h
+
+
 def _launch(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads, eps):
     global LAUNCHES
     b, f, l, c = x.shape
-    d = c // heads
-    if c != heads * d or f > 32:
-        raise ValueError(f"K4 takes C = heads * d and at most 32 frames, got {x.shape}")
-    x2 = x.reshape(-1, c)
-    if not x2.is_contiguous() or x2.dtype != torch.bfloat16:
+    plan = attn_plan(f, l, c, heads)
+    if not x.is_contiguous() or x.dtype != torch.bfloat16:
         raise ValueError("K4 takes a contiguous bf16 input")
-    stats = row_stats(x2, eps)
-    q, k, v = ln_gemm(
-        x2, stats, gamma.float().contiguous(), beta.float().contiguous(),
-        [wq, wk, wv], [None, None, None], pe=pe.float().contiguous(),
-        tokens=l, frames=f, f32_out=(True, True, False),
-    )
+    for w in (wq, wk, wv, wo):
+        if w.dtype != torch.bfloat16 or tuple(w.shape) != (c, c) or not w.is_contiguous():
+            raise ValueError(f"K4 takes contiguous bf16 ({c}, {c}) weights")
+    if tuple(pe.shape) != (f, c):
+        raise ValueError(f"K4 takes pe ({f}, {c}), got {tuple(pe.shape)}")
+    x2 = x.reshape(-1, c)
+    h = ln_pe(x, gamma.float().contiguous(), beta.float().contiguous(),
+              pe.float().contiguous(), eps)
     o = torch.empty_like(x2)
     lib = _build.load("motion_attn")
-    rc = lib.mmgt_frame_attn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                             b, f, l, heads, d, 1.0 / math.sqrt(d), _build.stream_ptr(x2))
-    _build.check(lib, rc, "frame attention (K4)")
-    (out,) = ln_gemm(o, None, None, None, [wo], [bo], res=[x2])
+    rc = lib.mmgt_motion_attn(
+        h.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), o.data_ptr(), b, f, l, c,
+        heads, 1.0 / math.sqrt(c // heads), plan["rp"], plan["lt"], plan["stages"],
+        plan["smem"], _build.stream_ptr(x2))
+    _build.check(lib, rc, "motion attention (K4)")
+    (out,) = ln_gemm(o, None, None, [wo], [bo], res=[x2])
     LAUNCHES += 1
     return out.reshape(x.shape)
 

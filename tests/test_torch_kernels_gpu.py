@@ -103,6 +103,36 @@ def test_ln_projections_kernel(gen, n_w):
         _check(got, want)
 
 
+# M against the 128- and 64-row stripes; K = 320 (128-row stripes), 640 and
+# 1280 (64-row); 1-3 weights with N off the 160-column tile (96, 200), the
+# GEGLU (2560) and the widest (10240) widths; with and without bias
+@pytest.mark.parametrize("m,k,outs,bias", [
+    (333, 320, [320, 320, 320], False), (1000, 640, [640, 200], True),
+    (200, 1280, [1280, 96, 2560], True), (300, 320, [2560], True), (130, 1280, [10240], False),
+    (77, 64, [64, 512], True)])
+def test_ln_projections_kernel_tile_edges(gen, m, k, outs, bias):
+    x = _bf(gen, m, k)
+    g, b = 1 + _bf(gen, k, scale=0.1), _bf(gen, k, scale=0.1)
+    ws = [_bf(gen, n, k, scale=1 / math.sqrt(k)) for n in outs]
+    bs = [_bf(gen, n, scale=0.1) if bias else None for n in outs]
+    before = L.LAUNCHES
+    got = L.ln_projections(x, g, b, ws, bs)
+    assert L.LAUNCHES == before + 1
+    for gg, want in zip(got, L.ln_projections_plain(x, g, b, ws, bs)):
+        _check(gg, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(333, 320, 320), (1000, 640, 640), (200, 1280, 1280)])
+def test_gemm_residual_epilogue(gen, m, k, n):
+    """The GEMM without LayerNorm and with the bias + residual epilogue
+    (K4's W_o)."""
+    x, w = _bf(gen, m, k), _bf(gen, n, k, scale=1 / math.sqrt(k))
+    bias, res = _bf(gen, n, scale=0.1), _bf(gen, m, n)
+    (got,) = L.ln_gemm(x, None, None, [w], [bias], res=[res])
+    want = (x.float() @ w.float().t() + bias.float() + res.float()).to(torch.bfloat16)
+    _check(got, want)
+
+
 @pytest.mark.parametrize("shape", [(2, 12, 200, 320), (2, 16, 64, 640)])
 def test_motion_attention_kernel(gen, shape):
     c = shape[-1]
@@ -115,6 +145,24 @@ def test_motion_attention_kernel(gen, shape):
     got = M.motion_attention(*args)
     assert ops.launch_counts()["motion_attention"] == 1
     assert ops.launch_counts()["ln_projections"] == 0  # its GEMM launches are K4's own
+    _check(got, M.motion_attention_plain(*args))
+
+
+# token counts off the Lt-token blocks (Lt = 128 // F or 64 // F), F = 2, 8,
+# 12 and 32, and C = 320, 640, 1280 at 8 heads (d = 40, 80, 160)
+@pytest.mark.parametrize("shape", [(2, 2, 203, 320), (2, 8, 37, 640), (2, 12, 65, 1280),
+                                   (1, 32, 41, 320), (1, 32, 9, 1280), (2, 12, 1001, 320)])
+def test_motion_attention_kernel_tile_edges(gen, shape):
+    c = shape[-1]
+    x = _bf(gen, *shape)
+    g, b = 1 + _bf(gen, c, scale=0.1), _bf(gen, c, scale=0.1)
+    pe = M.sinusoidal_positions(32, c, "cuda")[: shape[1]]
+    ws = [_bf(gen, c, c, scale=1 / math.sqrt(c)) for _ in range(4)]
+    args = (x, g, b, pe, *ws, _bf(gen, c, scale=0.1), 8)
+    ops.reset_launch_counts()
+    got = M.motion_attention(*args)
+    assert ops.launch_counts()["motion_attention"] == 1
+    assert ops.launch_counts()["ln_projections"] == 0
     _check(got, M.motion_attention_plain(*args))
 
 
