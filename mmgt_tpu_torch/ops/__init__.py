@@ -1,7 +1,7 @@
 """The port's ops: plain PyTorch versions and the five Hopper kernels.
 
 K1 `attention.flash_attention`     CUDA C++  csrc/flash_attn.cu
-K2 `norms.group_norm`              Triton    ops/norms.py
+K2 `norms.group_norm`              CUDA C++  csrc/group_norm.cu
 K3 `fused_ln.ln_projections`       CUDA C++  csrc/ln_proj.cu
 K4 `motion_attention.motion_attention`  CUDA C++  csrc/motion_attn.cu (+ ln_proj.cu)
 K5 `attention.flash_attention_bwd` CUDA C++  csrc/flash_attn_bwd.cu

@@ -28,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("flash_attn", "flash_attn_bwd", "ln_proj", "motion_attn")
+SOURCES = ("flash_attn", "flash_attn_bwd", "group_norm", "ln_proj", "motion_attn")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -43,6 +43,10 @@ SIGNATURES = {
     },
     "flash_attn_bwd": {
         "mmgt_flash_attn_bwd": [VP] * 11 + [LL] * 24 + [INT] * 5 + [FLT, VP],
+    },
+    "group_norm": {
+        "mmgt_group_norm": [VP, VP, INT, VP, INT, VP, VP] + [INT] * 4 + [FLT] + [INT] * 8 + [VP],
+        "mmgt_gn_max_clusters": [INT] * 4 + [VP],
     },
     "ln_proj": {
         "mmgt_ln_gemm": [VP] * 3 + [INT] * 2 + [FLT, INT] + [VP] * 3 + [INT] * 3 + [VP] * 9

@@ -1,35 +1,43 @@
-"""Normalisation: GroupNorm (+SiLU) with kernel K2 (Triton), and LayerNorm.
+"""Normalisation: GroupNorm (+SiLU) with kernel K2 (CUDA), and LayerNorm.
 
 Channel-last (N, ..., C) layout, f32 statistics, as `mmgt_tpu/ops/norms.py`.
 
-K2 replaces the TPU kernels mmgt_tpu/ops/norms.py:_gn_kernel (one batch
-row in VMEM) and _gn_kernel_blocked (two-phase, for rows too big for
-VMEM); one design takes every row size, up to the VAE decoder's
-(8, 512*512, 128). Bound on the H100: bytes (a reduction and an
-elementwise pass, ~10 flops per element). Design, three Triton launches:
-  1. split-row partial sums of x and x^2 per (row, split, channel), each
-     program streaming a (rows, 128-channel) slab with coalesced loads;
-  2. per (row, group): the partials of the group's channels summed into
-     mean and rstd (E[x^2] - E[x]^2, clamped at 0, as the TPU kernel);
-  3. the affine (+ SiLU) applied tile by tile.
-x is read twice and written once; the statistics are a few KB.
+K2 (csrc/group_norm.cu) replaces the TPU kernels
+mmgt_tpu/ops/norms.py:_gn_kernel (one batch row in VMEM, read once) and
+_gn_kernel_blocked (two phases, for rows too big for VMEM). Bound on the
+H100: bytes (~10 flops an element). Two regimes, picked by `gn_plan` from
+the shape alone and checked by the C entry:
+  * resident: a row held in the shared memory of a thread block cluster
+    of k <= 16 CTAs (`cp.async`); each CTA pushes its group sums to every
+    CTA of the cluster through distributed shared memory; as many clusters
+    as the card holds walk the rows, each loading its next row while it
+    stores this one; x is read once and written once;
+  * streaming, for rows larger than a cluster holds: per-(row, split,
+    group) partial sums, then an apply pass that finishes the statistics
+    in its prologue; x is read twice.
+Both sum d = x - K_g and d^2, K_g the group's first element in the row,
+so that E[d^2] - E[d]^2 (clamped at 0, as the TPU kernel) does not cancel
+when a group's mean is far from 0.
+gamma and beta are read in their own dtype (bf16 or f32) or left out; a
+call allocates only its output (and, streaming, a few KB of partials).
 
 On a CPU tensor `group_norm` runs `group_norm_plain`; on a CUDA tensor it
-launches K2 or raises. Triton is imported inside the launching function.
-Gradients: when autograd needs them, the forward still runs K2 and the
-backward is autograd through `group_norm_plain`, recomputed, as the JAX
-package's `_gn_diff_bwd` (`ops/_vjp.py`).
+launches K2 or raises. Gradients: when autograd needs them, the forward
+still runs K2 and the backward is autograd through `group_norm_plain`,
+recomputed, as the JAX package's `_gn_diff_bwd` (`ops/_vjp.py`).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
 
+from mmgt_tpu_torch.ops import _build
 from mmgt_tpu_torch.ops._vjp import kernel_with_plain_vjp, needs_grad
 
 LAUNCHES = 0  # K2 launches (one per group_norm call on the card)
-_KERNELS = None
 
 
 def group_norm_plain(x, num_groups: int, weight=None, bias=None, eps: float = 1e-6,
@@ -53,115 +61,150 @@ def group_norm_plain(x, num_groups: int, weight=None, bias=None, eps: float = 1e
     return out.to(x.dtype)
 
 
-def _kernels():
-    global _KERNELS
-    if _KERNELS is not None:
-        return _KERNELS
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def gn_partial(x_ptr, ws_ptr, L, C, rows_per_split,
-                   BL: tl.constexpr, BC: tl.constexpr):
-        n = tl.program_id(0)
-        s = tl.program_id(1)
-        cb = tl.program_id(2)
-        nsplit = tl.num_programs(1)
-        cols = cb * BC + tl.arange(0, BC)
-        cmask = cols < C
-        row0 = s * rows_per_split
-        row_end = tl.minimum(row0 + rows_per_split, L)
-        base = x_ptr + n.to(tl.int64) * L * C
-        acc = tl.zeros([BC], dtype=tl.float32)
-        acc2 = tl.zeros([BC], dtype=tl.float32)
-        for r in range(row0, row_end, BL):
-            rows = r + tl.arange(0, BL)
-            m = (rows[:, None] < row_end) & cmask[None, :]
-            v = tl.load(base + rows[:, None].to(tl.int64) * C + cols[None, :],
-                        mask=m, other=0.0).to(tl.float32)
-            acc += tl.sum(v, axis=0)
-            acc2 += tl.sum(v * v, axis=0)
-        out = ws_ptr + ((n * nsplit + s) * 2).to(tl.int64) * C
-        tl.store(out + cols, acc, mask=cmask)
-        tl.store(out + C + cols, acc2, mask=cmask)
-
-    @triton.jit
-    def gn_stats(ws_ptr, st_ptr, C, G, gs, nsplit, count, eps,
-                 BS: tl.constexpr, BG: tl.constexpr):
-        n = tl.program_id(0)
-        g = tl.program_id(1)
-        ch = g * gs + tl.arange(0, BG)
-        chm = tl.arange(0, BG) < gs
-        tot = tl.zeros([BS, BG], dtype=tl.float32)
-        tot2 = tl.zeros([BS, BG], dtype=tl.float32)
-        for s0 in range(0, nsplit, BS):
-            sp = s0 + tl.arange(0, BS)
-            m = (sp[:, None] < nsplit) & chm[None, :]
-            off = ((n * nsplit + sp[:, None]) * 2).to(tl.int64) * C + ch[None, :]
-            tot += tl.load(ws_ptr + off, mask=m, other=0.0)
-            tot2 += tl.load(ws_ptr + off + C, mask=m, other=0.0)
-        mean = tl.sum(tl.sum(tot, axis=1), axis=0) / count
-        ex2 = tl.sum(tl.sum(tot2, axis=1), axis=0) / count
-        var = tl.maximum(ex2 - mean * mean, 0.0)
-        rstd = 1.0 / tl.sqrt(var + eps)
-        tl.store(st_ptr + (n * G + g) * 2, mean)
-        tl.store(st_ptr + (n * G + g) * 2 + 1, rstd)
-
-    @triton.jit
-    def gn_apply(x_ptr, o_ptr, st_ptr, w_ptr, b_ptr, L, C, G, gs,
-                 SILU: tl.constexpr, BL: tl.constexpr, BC: tl.constexpr):
-        n = tl.program_id(0)
-        rb = tl.program_id(1)
-        cb = tl.program_id(2)
-        rows = rb * BL + tl.arange(0, BL)
-        cols = cb * BC + tl.arange(0, BC)
-        cmask = cols < C
-        m = (rows[:, None] < L) & cmask[None, :]
-        off = n.to(tl.int64) * L * C + rows[:, None].to(tl.int64) * C + cols[None, :]
-        v = tl.load(x_ptr + off, mask=m, other=0.0).to(tl.float32)
-        grp = cols // gs
-        mean = tl.load(st_ptr + (n * G + grp) * 2, mask=cmask, other=0.0)
-        rstd = tl.load(st_ptr + (n * G + grp) * 2 + 1, mask=cmask, other=0.0)
-        w = tl.load(w_ptr + cols, mask=cmask, other=0.0)
-        b = tl.load(b_ptr + cols, mask=cmask, other=0.0)
-        y = (v - mean[None, :]) * rstd[None, :] * w[None, :] + b[None, :]
-        if SILU:
-            y = y * tl.sigmoid(y)
-        tl.store(o_ptr + off, y.to(o_ptr.dtype.element_ty), mask=m)
-
-    _KERNELS = (triton, gn_partial, gn_stats, gn_apply)
-    return _KERNELS
+# K2's plan (csrc/group_norm.cu). A thread owns one 16-byte column of the
+# row and walks the rows `lanes` apart; a resident CTA holds `rows` rows of
+# the row (its slab) and its reduction scratch in shared memory.
+SMEM_LIMIT = 232448       # 227 KB a block on the H100
+TWO_CTAS = 115712         # half an SM's 228 KB less the 1 KB reserved a block
+SMS = 132                 # streaming multiprocessors of the H100
+MAX_CLUSTER = 16          # non-portable cluster size limit
+STREAM_CTAS = 4 * SMS     # streaming grid: about four CTAs an SM
 
 
-def _next_pow2(n: int) -> int:
-    return 1 << max(0, (n - 1).bit_length())
+def _align(v: int, a: int) -> int:
+    return -(-v // a) * a
+
+
+def gn_threads(c: int, esize: int) -> int:
+    """Threads of a K2 CTA: whole 16-byte columns, as many row lanes as fit
+    512 threads (at least one)."""
+    v = c * esize // 16
+    return v * max(1, 512 // v)
+
+
+def gn_resident_smem(rows: int, c: int, groups: int, esize: int, k: int) -> int:
+    """Shared-memory bytes of a resident CTA of a k-CTA cluster (as
+    `resident_smem` in csrc/group_norm.cu): the slab, the per-lane channel
+    sums (lanes x C f32), the channel totals (C), the group partials,
+    statistics and pilots (5 G), the cluster's partials for two rows (4 G
+    k) and two mbarriers."""
+    lanes = gn_threads(c, esize) // (c * esize // 16)
+    floats = lanes * c + c + (5 + 4 * k) * groups
+    return _align(_align(rows * c * esize, 128) + 4 * floats, 8) + 16
+
+
+def gn_stream_smem(c: int, groups: int, esize: int) -> int:
+    lanes = gn_threads(c, esize) // (c * esize // 16)
+    return 4 * (lanes * c + c + 2 * groups)
+
+
+@functools.lru_cache(maxsize=None)
+def gn_plan(n: int, l: int, c: int, groups: int, dtype=torch.bfloat16) -> dict:
+    """K2's plan for x (n, l, c) in `dtype`, from the shape alone.
+
+    Resident (one launch, x read once) where a row fits the shared memory of
+    a cluster of k <= 16 CTAs: the smallest k whose slabs leave room for two
+    CTAs an SM (one CTA's load then overlaps the other's stores), else k =
+    16 at one CTA an SM; k is raised towards 132 / n CTAs (at least 8 rows
+    a CTA) so that few rows still spread over the card. Streaming (two
+    launches, x read twice) for larger rows, split into enough CTAs for
+    about four an SM. Raises where the kernel cannot take the shape. The
+    result is cached and shared: do not modify it."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"K2 takes bf16 or f32 x, got {dtype}")
+    esize = 2 if dtype == torch.bfloat16 else 4
+    if n < 1 or n > 65535 or l < 1 or groups < 1 or c % groups:
+        raise ValueError(f"K2 cannot take x ({n}, {l}, {c}) in {groups} groups")
+    if (c * esize) % 16 or c * esize // 16 > 1024:
+        raise ValueError(f"K2 takes rows of 16-byte vectors, at most 1024 a row; C = {c}")
+    threads = gn_threads(c, esize)
+    smem = lambda k: gn_resident_smem(-(-l // k), c, groups, esize, k)
+    fits = [k for k in range(1, MAX_CLUSTER + 1) if smem(k) <= SMEM_LIMIT]
+    if fits:
+        two = [k for k in fits if smem(k) <= TWO_CTAS]
+        k = two[0] if two else MAX_CLUSTER
+        k = max(k, min(MAX_CLUSTER, -(-SMS // n), max(1, l // 8)))
+        rows = -(-l // k)
+        return dict(regime="resident", k=k, threads=threads, rows=rows, smem=smem(k),
+                    slab=rows * c * esize, ws=0)
+    return gn_stream_plan(n, l, c, groups, esize)
+
+
+def gn_stream_plan(n: int, l: int, c: int, groups: int, esize: int) -> dict:
+    """The streaming regime's plan (`gn_plan` takes it for rows larger than
+    a cluster holds): each row split into enough CTAs for about four an SM,
+    each CTA at least four rows a lane."""
+    threads = gn_threads(c, esize)
+    lanes = threads // (c * esize // 16)
+    splits = max(1, min(-(-STREAM_CTAS // n), -(-l // (4 * lanes)), 65535))
+    rows = -(-l // splits)
+    splits = -(-l // rows)
+    return dict(regime="streaming", k=splits, threads=threads, rows=rows,
+                smem=gn_stream_smem(c, groups, esize), slab=0, ws=n * splits * 2 * groups)
+
+
+_PARAM_KIND = {None: 0, torch.bfloat16: 1, torch.float32: 2}
+_MAX_CLUSTERS = {}
+
+
+def _max_clusters(lib, plan, f32: bool) -> int:
+    """Clusters of the plan's shape that the card holds at once
+    (cudaOccupancyMaxActiveClusters, asked at first use of a shape); the
+    resident grid launches that many, each walking rows. Raises where such
+    a cluster cannot be scheduled at all."""
+    key = (plan["k"], plan["threads"], plan["smem"], f32)
+    if key in _MAX_CLUSTERS:
+        return _MAX_CLUSTERS[key]
+    out = ctypes.c_int(0)
+    _build.check(lib, lib.mmgt_gn_max_clusters(plan["k"], plan["threads"], plan["smem"],
+                                                int(f32), ctypes.addressof(out)),
+                 "K2 cluster occupancy")
+    if out.value < 1:
+        raise RuntimeError(f"K2: a cluster of {plan['k']} CTAs with {plan['smem']} bytes of "
+                           f"shared memory each cannot be scheduled on this card")
+    _MAX_CLUSTERS[key] = out.value
+    return out.value
+
+
+def _param(p, c: int):
+    if p is None:
+        return None
+    if p.dtype not in (torch.bfloat16, torch.float32) or p.numel() != c:
+        raise ValueError(f"K2 takes bf16 or f32 gamma/beta of {c} channels")
+    return p.contiguous()
+
+
+def run_plan(x, num_groups, weight, bias, eps, act, plan, clusters=None):
+    """One K2 call on a contiguous x (n, ..., c) under `plan`; a resident
+    plan runs on `clusters` clusters (default: as many as the card holds,
+    at most n). `group_norm` calls it with `gn_plan`'s plan; it counts no
+    launch itself."""
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("K2 takes a contiguous, 16-byte aligned channel-last tensor")
+    n, c = x.shape[0], x.shape[-1]
+    l = x.numel() // max(n * c, 1)
+    w, b = _param(weight, c), _param(bias, c)
+    f32 = x.dtype == torch.float32
+    lib = _build.load("group_norm")
+    if plan["regime"] == "resident" and clusters is None:
+        clusters = min(n, _max_clusters(lib, plan, f32))
+    out = torch.empty_like(x)
+    ws = torch.empty(plan["ws"], dtype=torch.float32, device=x.device) if plan["ws"] else None
+    rc = lib.mmgt_group_norm(
+        x.data_ptr(), _build.ptr(w), _PARAM_KIND[None if w is None else w.dtype], _build.ptr(b),
+        _PARAM_KIND[None if b is None else b.dtype], out.data_ptr(), _build.ptr(ws), n, l, c,
+        num_groups, float(eps), int(act == "silu"), int(f32),
+        0 if plan["regime"] == "resident" else 1, plan["k"], plan["threads"], plan["rows"],
+        plan["smem"], clusters or 0, _build.stream_ptr(x))
+    _build.check(lib, rc, "K2 GroupNorm")
+    return out
 
 
 def _launch(x, num_groups, weight, bias, eps, act):
     global LAUNCHES
-    if not x.is_contiguous():
-        raise ValueError("K2 takes a contiguous channel-last tensor")
-    triton, gn_partial, gn_stats, gn_apply = _kernels()
     n, c = x.shape[0], x.shape[-1]
-    l = x.numel() // max(n * c, 1)
-    gs = c // num_groups
-    dev = x.device
-    w = (weight if weight is not None else torch.ones(c, device=dev)).float().contiguous()
-    b = (bias if bias is not None else torch.zeros(c, device=dev)).float().contiguous()
-    rows_per_split = 512
-    nsplit = triton.cdiv(l, rows_per_split)
-    bc = min(128, _next_pow2(c))
-    ws = torch.empty((n, nsplit, 2, c), dtype=torch.float32, device=dev)
-    stats = torch.empty((n, num_groups, 2), dtype=torch.float32, device=dev)
-    out = torch.empty_like(x)
-    gn_partial[(n, nsplit, triton.cdiv(c, bc))](
-        x, ws, l, c, rows_per_split, BL=32, BC=bc, num_warps=4)
-    gn_stats[(n, num_groups)](
-        ws, stats, c, num_groups, gs, nsplit, float(l * gs), float(eps),
-        BS=32, BG=_next_pow2(gs), num_warps=4)
-    gn_apply[(n, triton.cdiv(l, 32), triton.cdiv(c, bc))](
-        x, out, stats, w, b, l, c, num_groups, gs,
-        SILU=(act == "silu"), BL=32, BC=bc, num_warps=4)
+    out = run_plan(x, num_groups, weight, bias, eps, act,
+                   gn_plan(n, x.numel() // max(n * c, 1), c, num_groups, x.dtype))
     LAUNCHES += 1
     return out
 

@@ -80,16 +80,67 @@ def test_flash_attention_kernel_packed_qkv(gen, d, bank):
     _check(got, want)
 
 
-@pytest.mark.parametrize("shape,act", [((3, 1000, 320), "silu"), ((2, 64, 1280), None)])
-def test_group_norm_kernel(gen, shape, act):
-    # every group its own mean and every channel its own scale, so a channel
-    # read into the wrong group's statistics is off by O(1)
+def _gn_input(gen, shape, groups, dtype=torch.bfloat16):
+    # every group its own mean (up to 3 x its index) and every channel its
+    # own scale, so a channel read into the wrong group's statistics is off
+    # by O(1), and E[x^2] - E[x]^2 would lose digits
     c = shape[-1]
     ch = torch.arange(c, device="cuda")
-    x = (torch.randn(*shape, generator=gen, device="cuda") * (1 + ch / c)
-         + 3.0 * (ch // (c // 32))).to(torch.bfloat16)
-    w, b = _bf(gen, shape[-1]), _bf(gen, shape[-1])
-    _check(N.group_norm(x, 32, w, b, 1e-6, act), N.group_norm_plain(x, 32, w, b, 1e-6, act))
+    return (torch.randn(*shape, generator=gen, device="cuda") * (1 + ch / c)
+            + 3.0 * (ch // (c // groups))).to(dtype)
+
+
+BF, F32 = torch.bfloat16, torch.float32
+
+
+# both regimes; group sizes 3, 4, 10, 30, 40 and 60 (a 16-byte vector of 8
+# bf16 channels straddles groups of 3, 10 and 30); L ragged against the
+# cluster's CTAs and the streaming splits; gamma/beta bf16, f32 or absent;
+# x bf16 and f32; SiLU on and off
+@pytest.mark.parametrize("shape,groups,act,wdtype,xdtype,regime", [
+    ((3, 1000, 320), 32, "silu", BF, BF, "resident"),
+    ((2, 64, 1280), 32, None, BF, BF, "resident"),
+    ((2, 333, 96), 32, "silu", F32, BF, "resident"),
+    ((2, 4096, 128), 32, None, None, BF, "resident"),
+    ((2, 777, 960), 32, "silu", BF, BF, "resident"),
+    ((2, 100, 1920), 32, None, F32, BF, "resident"),
+    ((3, 1000, 320), 32, "silu", F32, F32, "resident"),
+    ((2, 4099, 960), 32, None, F32, BF, "streaming"),
+    ((2, 2049, 1920), 32, "silu", BF, BF, "streaming"),
+    ((2, 20001, 128), 32, "silu", None, BF, "streaming"),
+    ((2, 5000, 640), 32, None, BF, F32, "streaming"),
+])
+def test_group_norm_kernel(gen, shape, groups, act, wdtype, xdtype, regime):
+    assert N.gn_plan(*shape, groups, xdtype)["regime"] == regime
+    c = shape[-1]
+    x = _gn_input(gen, shape, groups, xdtype)
+    w = b = None
+    if wdtype is not None:
+        w, b = _bf(gen, c).to(wdtype), _bf(gen, c).to(wdtype)
+    before = N.LAUNCHES
+    got = N.group_norm(x, groups, w, b, 1e-6, act)
+    assert N.LAUNCHES == before + 1
+    assert got.dtype == xdtype and got.shape == x.shape
+    _check(got, N.group_norm_plain(x, groups, w, b, 1e-6, act))
+
+
+def test_group_norm_kernel_every_cluster_size_of_the_path(gen):
+    """One full-size path shape for each cluster size the plan gives the
+    main path (and one streaming shape), each against the plain version."""
+    from test_torch_tile_plans import gn_path_shapes
+
+    by_k = {}
+    for shape in gn_path_shapes("full"):
+        plan = N.gn_plan(*shape, 32)
+        key = plan["k"] if plan["regime"] == "resident" else "streaming"
+        if key not in by_k or shape[0] * shape[1] * shape[2] < math.prod(by_k[key]):
+            by_k[key] = shape
+    assert 16 in by_k and "streaming" in by_k
+    for key, shape in sorted(by_k.items(), key=lambda kv: str(kv[0])):
+        x = _gn_input(gen, shape, 32)
+        w, b = _bf(gen, shape[-1]), _bf(gen, shape[-1])
+        _check(N.group_norm(x, 32, w, b, 1e-6, "silu"), N.group_norm_plain(x, 32, w, b, 1e-6,
+                                                                            "silu"))
 
 
 @pytest.mark.parametrize("n_w", [1, 2, 3])

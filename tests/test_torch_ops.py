@@ -95,12 +95,18 @@ def test_single_kv_token_shortcut():
     close(A.flash_attention(t(q), t(k), t(v)), want, **TOL)
 
 
-@pytest.mark.parametrize("impl", ["pallas_interpret", "pallas_blocked_interpret"])
-@pytest.mark.parametrize("act", [None, "silu"])
-def test_group_norm_matches_pallas(impl, act):
+# C = 64 (group size 2), and the group sizes that a 16-byte vector of 8
+# bf16 channels straddles on the card: 3 (C = 96) and 10 (C = 320)
+_GN_CASES = [(act, impl, c) for c in (64, 96, 320) for act in (None, "silu")
+             for impl in ("pallas_interpret", "pallas_blocked_interpret")]
+
+
+@pytest.mark.parametrize("act,impl,c", _GN_CASES, ids=[
+    f"{act}-{impl}" + ("" if c == 64 else f"-c{c}") for act, impl, c in _GN_CASES])
+def test_group_norm_matches_pallas(impl, act, c):
     rng = np.random.default_rng(4)
-    x = _rand(rng, 2, 8, 8, 64) * 2 + 0.5
-    w, b = _rand(rng, 64), _rand(rng, 64)
+    x = _rand(rng, 2, 8, 8, c) * 2 + 0.5
+    w, b = _rand(rng, c), _rand(rng, c)
     want = JN.group_norm(jnp.asarray(x), 32, jnp.asarray(w), jnp.asarray(b), 1e-6, act,
                          impl=impl)
     close(N.group_norm(t(x), 32, t(w), t(b), 1e-6, act), want, **TOL)

@@ -1,13 +1,19 @@
-"""The Python tile plans of K3 (`fused_ln.gemm_plan`) and K4's kernel A
-(`motion_attention.attn_plan`): every shape that the port's main path, its
-trainer and the card's tiny pipelines hand these kernels gets a plan that
-fits 227 KB of shared memory, and a shape that cannot fit raises before
-any launch. The C entries check the same plan (csrc/ln_proj.cu,
-csrc/motion_attn.cu), so a plan that passes here is the one the card runs."""
-import pytest
+"""The Python plans of K2 (`norms.gn_plan`), K3 (`fused_ln.gemm_plan`) and
+K4's kernel A (`motion_attention.attn_plan`): every shape that the port's
+main path, its trainer and the card's tiny pipelines hand these kernels
+gets a plan that fits 227 KB of shared memory, and a shape that cannot fit
+raises before any launch. The C entries check the same plan
+(csrc/group_norm.cu, csrc/ln_proj.cu, csrc/motion_attn.cu), so a plan that
+passes here is the one the card runs."""
+import math
 
+import pytest
+import torch
+
+from mmgt_tpu_torch.models.unet3d import skip_channels
 from mmgt_tpu_torch.ops import fused_ln as L
 from mmgt_tpu_torch.ops import motion_attention as M
+from mmgt_tpu_torch.ops import norms as N
 
 SMEM = 232448  # bytes of shared memory a block may use on the H100
 
@@ -98,3 +104,127 @@ def test_k4_plan_level0_two_blocks_an_sm():
 def test_k4_plan_raises_on_shapes_it_does_not_take(f, l, c, heads):
     with pytest.raises(ValueError):
         M.attn_plan(f, l, c, heads)
+
+
+# ------------------------------------------------------------------- K2
+# the VAE at 512x512 (full width) and the card's tiny pipeline's VAE at
+# 64x64; rows: a decode chunk of 8 frames, the trainer's 12 frames, the
+# reference image
+VAE_WIDTHS = {"full": ((128, 256, 512, 512), 512), "card tiny": ((32, 32, 64, 64), 64),
+              "test tiny": ((32, 32, 64, 64), 32)}
+VAE_ROWS = (8, 12, 1)
+
+
+def unet_gn_pairs(chans, tokens, layers=2):
+    """(L, C) of every GroupNorm of the denoising UNet (and ReferenceNet):
+    the resnets' two norms, the spatial, audio and motion wrappers' norms,
+    mid, the up blocks' concatenated inputs and conv_norm_out."""
+    pairs, prev = set(), chans[0]
+    for c, l in zip(chans, tokens):
+        for _ in range(layers):
+            pairs |= {(l, prev), (l, c)}
+            prev = c
+    skips, x_ch = skip_channels(chans, layers), chans[-1]
+    for c, l in zip(reversed(chans), reversed(tokens)):
+        for _ in range(layers + 1):
+            pairs |= {(l, x_ch + skips.pop()), (l, c)}
+            x_ch = c
+    return pairs
+
+
+def vae_gn_pairs(chans, size):
+    """(L, C) of every GroupNorm of the VAE's encoder and decoder at size^2."""
+    pairs, prev, s = set(), chans[0], size
+    for i, c in enumerate(chans):
+        for _ in range(2):
+            pairs |= {(s * s, prev), (s * s, c)}
+            prev = c
+        s //= 2 if i < len(chans) - 1 else 1
+    pairs.add((s * s, chans[-1]))  # mid resnets, mid attention, conv_norm_out
+    for i, c in enumerate(reversed(chans)):
+        for _ in range(3):
+            pairs |= {(s * s, prev), (s * s, c)}
+            prev = c
+        s *= 2 if i < len(chans) - 1 else 1
+    return pairs
+
+
+def gn_path_shapes(config: str):
+    """(N, L, C) of every GroupNorm call of `config`'s networks."""
+    chans, tokens = WIDTHS[config]
+    shapes = {(rows, l, c) for rows in ROWS for l, c in unet_gn_pairs(chans, tokens)}
+    if config in VAE_WIDTHS:
+        vchans, size = VAE_WIDTHS[config]
+        shapes |= {(rows, l, c) for rows in VAE_ROWS for l, c in vae_gn_pairs(vchans, size)}
+    return sorted(shapes)
+
+
+def test_gn_path_shapes_cover_the_known_calls():
+    full = gn_path_shapes("full")
+    for shape in [(48, 4096, 320), (48, 4096, 960), (48, 4096, 640), (48, 1024, 1920),
+                  (48, 64, 2560), (1, 4096, 320), (12, 1024, 640), (8, 512 * 512, 128),
+                  (8, 512 * 512, 256), (8, 64 * 64, 512), (8, 256 * 256, 512)]:
+        assert shape in full, shape
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("config", sorted(WIDTHS))
+def test_gn_plan_fits_every_path_shape(config, dtype):
+    esize = 2 if dtype == torch.bfloat16 else 4
+    for n, l, c in gn_path_shapes(config):
+        g = math.gcd(c, 32)  # nn.layers.GroupNorm's groups for C < 32
+        plan = N.gn_plan(n, l, c, g, dtype)
+        assert plan["threads"] % (c * esize // 16) == 0 and plan["threads"] <= 1024
+        assert plan["rows"] * plan["k"] >= l > (plan["k"] - 1) * plan["rows"]
+        fits = N.gn_resident_smem(-(-l // N.MAX_CLUSTER), c, g, esize, N.MAX_CLUSTER) <= SMEM
+        if fits:  # resident wherever a row fits a cluster of 16
+            assert plan["regime"] == "resident", (n, l, c)
+            assert 1 <= plan["k"] <= N.MAX_CLUSTER
+            assert plan["smem"] == N.gn_resident_smem(plan["rows"], c, g, esize, plan["k"]) <= SMEM
+            assert plan["ws"] == 0
+        else:
+            assert plan["regime"] == "streaming", (n, l, c)
+            assert plan["smem"] == N.gn_stream_smem(c, g, esize) <= SMEM
+            assert plan["ws"] == n * plan["k"] * 2 * g
+
+
+def test_gn_plan_level0_is_resident_in_16_cta_clusters():
+    """The UNet's level-0 row (4096 x 320 bf16, 2.6 MB) fits 16 CTAs of 160
+    KB each, whether 48, 12 or 1 rows are normalised."""
+    for n in (48, 12, 1):
+        plan = N.gn_plan(n, 4096, 320, 32)
+        assert (plan["regime"], plan["k"], plan["rows"]) == ("resident", 16, 256)
+        assert plan["slab"] == 256 * 640
+
+
+@pytest.mark.parametrize("shape", [(48, 1024, 640), (48, 256, 1280), (24, 1024, 640)])
+def test_gn_plan_prefers_two_ctas_an_sm(shape):
+    """Where the row allows it, the slabs are small enough for two CTAs to
+    share an SM."""
+    plan = N.gn_plan(*shape, 32)
+    assert plan["regime"] == "resident" and plan["smem"] <= N.TWO_CTAS
+    k = plan["k"] - 1
+    assert N.gn_resident_smem(-(-shape[1] // k), shape[2], 32, 2, k) > N.TWO_CTAS
+
+
+def test_gn_plan_spreads_few_rows_over_the_card():
+    plan = N.gn_plan(48, 64, 1280, 32)  # level 3: 160 KB a row
+    assert plan["regime"] == "resident" and plan["k"] * 48 >= N.SMS
+
+
+@pytest.mark.parametrize("shape", [(48, 4096, 960), (48, 4096, 640), (48, 1024, 1920),
+                                   (8, 512 * 512, 128), (8, 512 * 512, 256), (8, 4096, 512)])
+def test_gn_plan_streams_rows_larger_than_a_cluster(shape):
+    plan = N.gn_plan(*shape, 32)
+    assert plan["regime"] == "streaming"
+    assert shape[0] * plan["k"] >= N.SMS  # enough CTAs to fill the card
+
+
+@pytest.mark.parametrize("n,l,c,groups,dtype", [
+    (2, 64, 36, 4, torch.bfloat16), (2, 64, 320, 30, torch.bfloat16),
+    (2, 64, 320, 32, torch.float16), (2, 64, 10240, 32, torch.bfloat16), (0, 64, 320, 32,
+                                                                          torch.bfloat16),
+    (2, 0, 320, 32, torch.bfloat16), (2, 64, 4100, 4100, torch.float32)])
+def test_gn_plan_raises_on_shapes_it_does_not_take(n, l, c, groups, dtype):
+    with pytest.raises(ValueError):
+        N.gn_plan(n, l, c, groups, dtype)
