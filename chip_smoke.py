@@ -14,8 +14,13 @@ Phases, in order; any failure exits non-zero:
      function, and the bound (the larger of flops / 989 TFLOP/s and bytes /
      3.35 TB/s, each input read once and each output written once); K1 and
      K2 are also timed at the shapes of each JAX function they replace, K1
-     at the level-1 and level-2 bank shapes, K2 (with its plan) at a
-     resident level-2 row and the streamed level-0 up-block concatenation, K3 at the level-0 q/k/v,
+     at the level-1 and level-2 bank shapes and on its f32 route
+     (`dot_product_attention`, (1, 600, 12, 64) f32 against the f32 plain
+     version), K2 (with its plan) at a resident level-2 row, the streamed
+     level-0 up-block concatenation, wav2vec2's conv 0 ((1, 12799, 512)
+     f32, 512 groups of one channel) and a formerly over-limit plan
+     ((1, 64, 768) f32, 768 groups; f32 rows within F32_REL_TOL of the
+     largest output), K3 at the level-0 q/k/v,
      level-0 GEGLU and level-2 audio-q shapes, K4 at levels 0, 1 and 3, K5
      at the level-1 bank-concat and level-0 audio self-attention shapes;
      two K5 calls on the same inputs must be bitwise equal;
@@ -32,14 +37,32 @@ Phases, in order; any failure exits non-zero:
      CPU (plain versions) and bf16 on the card (kernels); the card's mean
      error against the reference must stay within SMALL_ERR_FACTOR x the
      plain bf16 error, for the latents and the decoded frames;
-  6. train: Stage2Trainer at full width, 512x512, 12 frames, batch 1,
+  6. a2v: Audio2VideoPipeline.build at full width (Stage 2 and CLIP
+     ViT-L/14 in bf16; wav2vec2-base, WavLM Large and the SMGA decoder in
+     f32; seeded random weights) on a synthetic 4.0 s 16 kHz clip and a
+     512x512 portrait: 80 frames, 3 Stage-2 DDIM steps, 50 Stage-1 steps,
+     motion selection over 3 candidates; finite (80, 512, 512, 3) frames
+     and finite keypoints, K1-K4 launched (K5 not), K2 launched in the
+     audio encoding (wav2vec2 conv 0); the seconds, peak memory and
+     launches of each phase. Every launch's signature (shapes, strides,
+     dtypes, arguments) is recorded, and each distinct one replayed on
+     seeded random inputs: the kernel over the whole tensor against its
+     plain version on the first, middle and last batch rows (K3: row
+     chunks), at the kernels phase's tolerances (Stage 2 carries 120 frame
+     rows a UNet call here, against main's 48), with each one's time and
+     bound and their sums over the call;
+  7. a2v_small: a tiny audio2vid (64x64, 8 frames) with one set of
+     weights and draws, three ways as in 5; the keypoints and the frames
+     on the card within SMALL_ERR_FACTOR x the plain error against CPU
+     f32;
+  8. train: Stage2Trainer at full width, 512x512, 12 frames, batch 1,
      remat, TRAIN_STEPS steps on a seeded random batch: finite losses, the
      f32 masters of every trainable tensor moved, every frozen tensor
      bitwise unchanged, K5 launched EXPECTED_K5_PER_STEP times in every
      step and K1-K4 at least once (the counts include the checkpointed
      recompute), the seconds of the steps after the first and the peak
      memory;
-  7. train_small: a tiny trainer (the small pipeline's sizes, no remat) with
+  9. train_small: a tiny trainer (the small pipeline's sizes, no remat) with
      one set of weights and draws, three ways as in 5; the loss and the
      flattened trainable gradients against CPU f32, the card's mean error
      within SMALL_ERR_FACTOR x the plain bf16 error.
@@ -61,6 +84,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 STEPS = 3
@@ -73,6 +97,16 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # the small pipeline's card error may reach this multiple of plain bf16's
 # (chip readings so far: 1.08x on the latents, 1.15x on the frames)
 SMALL_ERR_FACTOR = 1.5
+# an f32 kernel output against its f32 plain version (another summation
+# order), relative to the largest output magnitude
+F32_REL_TOL = 1e-4
+# audio2vid: a 4.0 s clip (two 3.2 s slices), 80 frames, 50 Stage-1 steps
+A2V_SR = 16000
+A2V_SECONDS = 4.0
+A2V_FRAMES = 80
+A2V_STAGE1_STEPS = 50
+A2V_KP_FLOOR = 1e-5
+A2V_ROW_CHUNK = 4096  # K3 rows held against the plain version per chunk
 TRAIN_STEPS = 3
 TRAIN_FRAMES = 12
 # the denoiser's 16 bank self-attentions less down_0_attn_0 (nothing
@@ -196,6 +230,26 @@ def check_k1(torch, A):
         rows[timed] = row
         if rec is None:  # the hottest shape: the denoiser's level-0 bank attention
             rec = dict(row, rows=rows)
+    # the f32 route of dot_product_attention (wav2vec2 on audio over ~20 s):
+    # K1 in bf16 between two casts, against the f32 plain version; its error
+    # is the inputs' bf16 rounding
+    name, shape = "f32 route (wav2vec2 >= 512 frames)", (1, 600, 12, 64)
+    q, k, v = (torch.randn(*shape, generator=g, device=dev) for _ in range(3))
+    before = A.LAUNCHES
+    got = A.dot_product_attention(q, k, v)
+    require(A.LAUNCHES == before + 1, "K1 f32 route: dot_product_attention did not launch K1")
+    want = A.attention_plain(q, k, v)
+    err, tol = max_err(got, want), ulp_tol(want)
+    log(f"K1 {name}: max_abs_err {err:.3e} against the f32 plain version "
+        f"(tol {tol:.3e}, 2 bf16 ulps; largest |o| {want.abs().max().item():.3e})")
+    require(math.isfinite(err) and err <= tol, f"K1 {name}: err {err} > {tol}")
+    b, s_len, h, d = shape
+    row = time_row(lambda: A.dot_product_attention(q, k, v), lambda: A.attention_plain(q, k, v),
+                   lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
+                   4.0 * h * d * s_len * s_len * b, nbytes(q, k, v, got),
+                   f"{name}: q, K/V {shape} f32")
+    row["max_abs_err"] = err
+    rows["f32 route (1, 600, 12, 64)"] = row
     return rec
 
 
@@ -207,16 +261,24 @@ def check_k2(torch, N):
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     F = torch.nn.functional
     rec, rows, errs = None, {}, []
-    for name, shape, groups, act, timed in [
-        ("UNet L0 (48 rows)", (48, 4096, 320), 32, "silu", "_group_norm_pallas"),
-        ("UNet L3 no act", (48, 64, 1280), 32, None, None),
-        ("UNet L2 (resident, 48 rows)", (48, 256, 1280), 32, "silu", "L2 (48, 256, 1280)"),
-        ("UNet up-block concat L0 (streaming)", (48, 4096, 960), 32, "silu",
+    bf, f32 = torch.bfloat16, torch.float32
+    for name, shape, groups, act, dtype, timed in [
+        ("UNet L0 (48 rows)", (48, 4096, 320), 32, "silu", bf, "_group_norm_pallas"),
+        ("UNet L3 no act", (48, 64, 1280), 32, None, bf, None),
+        ("UNet L2 (resident, 48 rows)", (48, 256, 1280), 32, "silu", bf, "L2 (48, 256, 1280)"),
+        ("UNet up-block concat L0 (streaming)", (48, 4096, 960), 32, "silu", bf,
          "up concat (48, 4096, 960)"),
-        ("VAE decoder row", (8, 512 * 512, 128), 32, "silu", "_group_norm_pallas_blocked"),
+        ("VAE decoder row", (8, 512 * 512, 128), 32, "silu", bf, "_group_norm_pallas_blocked"),
+        # wav2vec2's conv 0 on a 4 s clip: 512 groups of one channel, f32
+        ("wav2vec2 conv_0 (512 groups of 1, f32)", (1, 12799, 512), 512, None, f32,
+         "wav2vec2 conv_0 (1, 12799, 512) f32"),
+        # a plan that once asked for 233,488 bytes of shared memory (k = 16)
+        ("768 groups of 1, f32 (formerly over the limit)", (1, 64, 768), 768, None, f32,
+         "(1, 64, 768) f32, 768 groups"),
     ]:
         c = shape[-1]
-        plan = N.gn_plan(*shape, groups, torch.bfloat16)
+        plan = N.gn_plan(*shape, groups, dtype)
+        require(plan["smem"] <= N.SMEM_LIMIT, f"K2 {name}: plan over the shared-memory limit")
         plan_s = (f"{plan['regime']}, " + (f"k = {plan['k']} CTAs a cluster, slab "
                                           f"{plan['slab']} B, smem {plan['smem']} B"
                                           if plan["regime"] == "resident" else
@@ -227,13 +289,16 @@ def check_k2(torch, N):
         # channel read into the wrong group's statistics is off by O(1)
         ch = torch.arange(c, device=dev)
         x = (torch.randn(*shape, generator=g, device=dev) * (1 + ch / c)
-             + 3.0 * (ch // (c // groups))).to(torch.bfloat16)
-        w = torch.randn(c, generator=g, device=dev).to(torch.bfloat16)
-        b = torch.randn(c, generator=g, device=dev).to(torch.bfloat16)
+             + 3.0 * (ch // (c // groups))).to(dtype)
+        w = torch.randn(c, generator=g, device=dev).to(dtype)
+        b = torch.randn(c, generator=g, device=dev).to(dtype)
         got = N.group_norm(x, groups, w, b, 1e-6, act)
         want = N.group_norm_plain(x, groups, w, b, 1e-6, act)
-        err, tol = max_err(got, want), ulp_tol(want)
-        log(f"K2 {name}: max_abs_err {err:.3e} (tol {tol:.3e}, 2 bf16 ulps)")
+        # f32: both sides keep f32 statistics, summed in another order
+        err = max_err(got, want)
+        tol, how = ((ulp_tol(want), "2 bf16 ulps") if dtype == bf else
+                    (F32_REL_TOL * want.abs().max().item(), f"{F32_REL_TOL:g} of the largest |y|"))
+        log(f"K2 {name}: max_abs_err {err:.3e} (tol {tol:.3e}, {how})")
         require(math.isfinite(err) and err <= tol, f"K2 {name}: err {err} > {tol}")
         errs.append(err)
         if timed is None:
@@ -626,6 +691,354 @@ def run_small(torch, Pose2VideoPipeline):
                 f"the plain bf16 error")
 
 
+# ---------------------------------------------------------------- audio2vid
+def synth_speech(seconds: float, seed: int):
+    """A seeded, speech-like 16 kHz signal: harmonics of a wandering pitch
+    under a syllable-rate envelope, plus a little noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = int(seconds * A2V_SR)
+    tt = np.arange(n) / A2V_SR
+    pitch = 140.0 + 30.0 * np.sin(2 * np.pi * 0.7 * tt)
+    phase = 2 * np.pi * np.cumsum(pitch) / A2V_SR
+    voice = sum(np.sin(k * phase) / k for k in range(1, 6))
+    env = np.clip(np.sin(2 * np.pi * 3.5 * tt + rng.uniform(0, 6)), 0, None) ** 2
+    return (0.3 * env * voice + 0.01 * rng.standard_normal(n)).astype(np.float32)
+
+
+def write_wav(directory: str, seconds: float, seed: int) -> str:
+    from mmgt_tpu_torch.data.dsp import save_wav
+
+    path = os.path.join(directory, f"speech_{seed}.wav")
+    save_wav(path, synth_speech(seconds, seed), A2V_SR)
+    return path
+
+
+def run_a2v(torch, ops, kernel_mods, tmp: str):
+    """audio2vid at full width: Stage 2 and CLIP in bf16, wav2vec2, WavLM and
+    SMGA in f32, a 4.0 s clip (two 3.2 s slices, the second zero-padded),
+    a 512^2 portrait, 80 frames, 3 Stage-2 steps, 50 Stage-1 steps, motion
+    selection over 3 candidates."""
+    import numpy as np
+
+    from mmgt_tpu_torch.config import InferenceConfig
+    from mmgt_tpu_torch.data.pose_init import portrait_keypoints
+    from mmgt_tpu_torch.pipelines.audio2vid import Audio2VideoPipeline
+
+    cfg = InferenceConfig(video_length=A2V_FRAMES, num_inference_steps=STEPS,
+                          a2p_sampling_steps=A2V_STAGE1_STEPS, use_motion_selection=True,
+                          motion_candidates=3)
+    t0 = time.perf_counter()
+    pipe = Audio2VideoPipeline.build(torch.bfloat16, device="cuda", feature_type="wavlm",
+                                     seed=SEED, config=cfg, profile_phases=True)
+    torch.cuda.synchronize()
+    log(f"a2v: build {time.perf_counter() - t0:.1f} s")
+    wav = write_wav(tmp, A2V_SECONDS, SEED + 20)
+    ref = np.random.default_rng(SEED + 21).uniform(size=(SIZE, SIZE, 3)).astype(np.float32)
+    init_kp = portrait_keypoints(ref, SIZE, SIZE)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with LaunchRecorder(torch, kernel_mods) as rec:
+        out = pipe(wav, ref, init_kp,
+                   generator=torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    frames, kp = out["frames"], out["keypoints"]
+    require(frames.shape == (A2V_FRAMES, SIZE, SIZE, 3), f"a2v frame shape {frames.shape}")
+    require(bool(np.isfinite(frames).all()), "a2v frames are not finite")
+    require(kp.shape == (A2V_FRAMES, 402) and bool(np.isfinite(kp).all()),
+            f"a2v keypoints: shape {kp.shape} or not finite")
+    for name, n in counts.items():
+        if name in INFERENCE_KERNELS:
+            require(n > 0, f"a2v: kernel {name} was not launched")
+        else:
+            require(n == 0, f"a2v: kernel {name} launched under no_grad")
+    require(pipe.phase_launches["audio_clip"]["group_norm"] > 0,
+            "a2v: K2 was not launched in the audio encoding (wav2vec2 conv 0)")
+    log("a2v: seconds " + json.dumps({k: round(v, 3) for k, v in pipe.timings.items()})
+        + f"; max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"frames mean {frames.mean():.4f} std {frames.std():.4f}; keypoints x range "
+        f"[{kp[:, 0::3].min():.1f}, {kp[:, 0::3].max():.1f}]")
+    log("a2v: launches " + json.dumps(counts))
+    log("a2v: launches by phase " + json.dumps(pipe.phase_launches))
+    for name, n in counts.items():
+        require(sum(ph[name] for ph in pipe.phase_launches.values()) == n,
+                f"a2v {name}: the phases' launches do not add up to the run's")
+    for name, n in counts.items():
+        require(sum(c for (k, _), (c, _) in rec.calls.items() if k == name) == n,
+                f"a2v {name}: the recorded launches do not add up to the run's")
+    del pipe, out
+    torch.cuda.empty_cache()
+    return counts, rec.calls
+
+
+class LaunchRecorder:
+    """Wraps each kernel module's `_launch` (the one place a kernel wrapper
+    launches) for the duration of a `with` block and records the layout of
+    every launch: its signature (per tensor argument the shape, strides and
+    dtype, every other argument as it is) with a count of calls, and K1's
+    kv_lens values of the first call of each signature. It adds no device
+    work to the calls it records."""
+
+    def __init__(self, torch, mods):
+        self.torch, self.mods, self.calls = torch, mods, {}
+
+    def desc(self, a):
+        if isinstance(a, self.torch.Tensor):
+            return ("T", tuple(a.shape), tuple(a.stride()), a.dtype)
+        if isinstance(a, (list, tuple)):
+            return ("S", tuple(self.desc(e) for e in a))
+        return ("V", a)
+
+    def __enter__(self):
+        self.saved = {name: mod._launch for name, mod in self.mods.items()}
+        for name, mod in self.mods.items():
+            def rec(*args, _name=name, _plain=self.saved[name]):
+                key = (_name, tuple(self.desc(a) for a in args))
+                if key not in self.calls:
+                    lens = args[3] if _name == "flash_attention" else None
+                    self.calls[key] = [0, None if lens is None else lens.clone()]
+                self.calls[key][0] += 1
+                return _plain(*args)
+            mod._launch = rec
+        return self
+
+    def __exit__(self, *exc):
+        for name, mod in self.mods.items():
+            mod._launch = self.saved[name]
+
+
+def check_a2v_calls(torch, calls, A, N, L, M):
+    """Every launch signature the a2v call recorded, replayed on seeded
+    random inputs of the same shapes, strides and dtypes (K1's kv_lens
+    as recorded): the kernel over the whole tensor, held against its plain
+    version on the first, middle and last batch rows (K3: the first,
+    middle and last A2V_ROW_CHUNK rows of x), where an offset past 2^31
+    bytes would show, at the kernels rows' tolerances. Each signature's
+    kernel time and bound; summed over the call's launches, each kernel's
+    device time and bound per a2v call."""
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+
+    def make(d, scale=1.0, shift=0.0):
+        """A seeded random tensor of descriptor d's layout (None for None)."""
+        if d[0] != "T":
+            return None
+        _, shape, stride, dtype = d
+        t = torch.empty_strided(shape, stride, dtype=dtype, device=dev)
+        t.copy_(torch.randn(shape, generator=g, device=dev) * scale + shift)
+        return t
+
+    def picks(n):
+        return sorted({0, n // 2, n - 1})
+
+    def tol_for(want):
+        if want.dtype == torch.float32:
+            return F32_REL_TOL * want.abs().max().item()
+        return ulp_tol(want)
+
+    per_kernel, rows, worst = {}, [], 0.0
+    for (kern, sig), (count, lens) in sorted(calls.items(), key=lambda kv: str(kv[0])):
+        if kern == "flash_attention":
+            q, k, v, _, kb, vb = map(make, sig[:6])
+            scale, lse = sig[6][1], sig[7][1]
+            kl = None if lens is None else lens.to(dev)
+            fn = lambda: A.flash_attention(q, k, v, kl, kb, vb, scale, lse)
+            got = fn()
+            got, got_lse = got if lse else (got, None)
+            err, tol = 0.0, 0.0
+            for i in picks(q.shape[0]):
+                r = slice(i, i + 1)
+                want = A.attention_plain(q[r], k[r], v[r], None if kl is None else kl[r], kb, vb,
+                                         scale, lse)
+                want, want_lse = want if lse else (want, None)
+                if lse:
+                    require(max_err(got_lse[r], want_lse) <= 1e-3,
+                            f"a2v K1 {tuple(q.shape)} row {i}: lse err")
+                err, tol = max(err, max_err(got[r], want)), max(tol, ulp_tol(want))
+                del want, want_lse
+            b, sq, h, d = q.shape
+            valid = int(kl.sum().item()) if kl is not None else b * (k.shape[1] + (
+                0 if kb is None else kb.shape[1]))
+            flops, nb = 4.0 * h * d * sq * valid, nbytes(q, k, v, kb, vb, got, got_lse)
+            what = (f"q {tuple(q.shape)} K/V {tuple(k.shape)}"
+                    + ("" if kb is None else f" + bank {tuple(kb.shape)}")
+                    + ("" if kl is None else " kv_lens") + (" lse" if lse else ""))
+            inputs = (q, k, v, kb, vb)
+        elif kern == "group_norm":
+            x, w, bb = make(sig[0]), make(sig[2]), make(sig[3])
+            groups, eps, act = sig[1][1], sig[4][1], sig[5][1]
+            c = x.shape[-1]
+            ch = torch.arange(c, device=dev)
+            x.copy_((x.float() * (1 + ch / c) + 3.0 * (ch // (c // groups))).to(x.dtype))
+            fn = lambda: N.group_norm(x, groups, w, bb, eps, act)
+            got = fn()
+            err, tol = 0.0, 0.0
+            for i in picks(x.shape[0]):
+                want = N.group_norm_plain(x[i:i + 1], groups, w, bb, eps, act)
+                err, tol = max(err, max_err(got[i:i + 1], want)), max(tol, tol_for(want))
+            flops, nb = 10.0 * x.numel(), nbytes(x, w, bb, got)
+            plan = N.gn_plan(x.shape[0], x.numel() // (x.shape[0] * c), c, groups, x.dtype)
+            what = (f"x {tuple(x.shape)} {str(x.dtype)[6:]}, {groups} groups"
+                    + (f", {act}" if act else "") + f", {plan['regime']} k = {plan['k']}")
+            inputs = (x, w, bb)
+        elif kern == "ln_projections":
+            xd, gd, btd, wsd, bsd, eps = sig
+            x = make(xd)
+            c = x.shape[-1]
+            gam, bet = make(gd, 0.1, 1.0), make(btd, 0.1)
+            ws = [make(d_, 1 / math.sqrt(c)) for d_ in wsd[1]]
+            bs = [make(d_, 0.1) if d_[0] == "T" else None for d_ in bsd[1]]
+            eps = eps[1]
+            fn = lambda: L.ln_projections(x, gam, bet, ws, bs, eps)
+            got = fn()
+            x2, m = x.reshape(-1, c), x.numel() // c
+            err, tol = 0.0, 0.0
+            for i in sorted({0, max(m - A2V_ROW_CHUNK, 0) // 2, max(m - A2V_ROW_CHUNK, 0)}):
+                r = slice(i, min(i + A2V_ROW_CHUNK, m))
+                want = L.ln_projections_plain(x2[r], gam, bet, ws, bs, eps)
+                for o, w_ in zip(got, want):
+                    err = max(err, max_err(o.reshape(-1, o.shape[-1])[r], w_))
+                    tol = max(tol, ulp_tol(w_))
+            flops = 2.0 * m * c * sum(w_.shape[0] for w_ in ws)
+            nb = nbytes(x, gam, bet, *ws, *bs, *got)
+            what = f"x {tuple(x.shape)}, W {[tuple(w_.shape) for w_ in ws]}" + (
+                ", bias" if bs[0] is not None else "")
+            inputs = (x, gam, bet, *ws, *bs)
+        else:
+            xd, gd, btd, ped, *wd, bod, heads, eps = sig
+            x = make(xd)
+            b, f, l, c = x.shape
+            args = (x, make(gd, 0.1, 1.0), make(btd, 0.1), make(ped),
+                    *(make(d_, 1 / math.sqrt(c)) for d_ in wd), make(bod, 0.1),
+                    heads[1], eps[1])
+            fn = lambda: M.motion_attention(*args)
+            got = fn()
+            err, tol = 0.0, 0.0
+            for i in picks(b):
+                want = M.motion_attention_plain(x[i:i + 1], *args[1:])
+                err, tol = max(err, max_err(got[i:i + 1], want)), max(tol, ulp_tol(want))
+            flops = 2.0 * b * f * l * c * c * 4 + 4.0 * b * l * f * f * c
+            nb = nbytes(*args[:9], got)
+            what = f"x {tuple(x.shape)}, {heads[1]} heads"
+            inputs = args[:9]
+        require(math.isfinite(err) and err <= tol,
+                f"a2v {kern} at {what}: err {err} > {tol}")
+        worst = max(worst, err / tol if tol else 0.0)
+        ms = time_ms(fn, iters=3, warmup=1)
+        bms, _ = bound_ms(flops, nb)
+        rows.append(dict(kernel=kern, at=what, calls=count, max_abs_err=err, tol=tol, ms=ms,
+                         bound_ms=bms))
+        log(f"a2v_calls {kern} x{count}: {what}: max_abs_err {err:.3e} (tol {tol:.3e}); "
+            f"ms {ms:.3f} bound_ms {bms:.4f}")
+        k = per_kernel.setdefault(kern, dict(signatures=0, launches=0, ms=0.0, bound_ms=0.0))
+        k["signatures"] += 1
+        k["launches"] += count
+        k["ms"] += count * ms
+        k["bound_ms"] += count * bms
+        del got, inputs, fn
+        torch.cuda.empty_cache()
+    log(json.dumps({"a2v_calls": {"per_kernel": per_kernel, "worst_err_over_tol": worst}}))
+    return per_kernel
+
+
+def tiny_a2v(torch, device, dtype):
+    """The a2v_small pipeline (64..128-channel Stage 2 as `small`, a 2-layer
+    CLIP, wav2vec2 and WavLM of width 64, a 1-layer SMGA decoder) with the
+    card's dtypes: Stage 2 and CLIP in `dtype`, the audio encoders and SMGA
+    in f32 (all f32 when `dtype` is). Weights: seeded, copied from one set
+    by the caller."""
+    from mmgt_tpu_torch.config import InferenceConfig
+    from mmgt_tpu_torch.data.audio import AudioProcessor, WavLMFeatureExtractor
+    from mmgt_tpu_torch.models.audio_proj import AudioProjModel
+    from mmgt_tpu_torch.models.clip_vision import CLIPVisionModel
+    from mmgt_tpu_torch.models.smga import GestureDecoder
+    from mmgt_tpu_torch.models.wav2vec2 import Wav2Vec2Model
+    from mmgt_tpu_torch.models.wavlm import WavLMModel
+    from mmgt_tpu_torch.pipelines.audio2vid import Audio2VideoPipeline
+    from mmgt_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline
+    from mmgt_tpu_torch.training.stage1 import SMGA
+
+    p2v = tiny_pipeline(torch, Pose2VideoPipeline, device, dtype)
+    p2v.audio_proj = AudioProjModel(blocks=2, channels=64, intermediate_dim=64).to(device, dtype)
+    f32 = torch.float32
+    enc = lambda m, dt: m.to(device, dt).eval()
+    cfg = InferenceConfig(width=64, height=64, video_length=8, num_inference_steps=2,
+                          a2p_sampling_steps=5, context_size=6, context_overlap=2,
+                          window_microbatch=None)
+    return Audio2VideoPipeline(
+        smga=SMGA(feature_type="wavlm", model=enc(GestureDecoder(
+            seq_len=80, latent_dim=64, ff_size=128, num_layers=1, num_heads=4,
+            cond_feature_dim=64 + 35), f32)),
+        pose2vid=p2v,
+        clip_model=enc(CLIPVisionModel(hidden_dim=64, num_layers=2, heads=4), dtype),
+        audio_processor=AudioProcessor(enc(Wav2Vec2Model(64, 2, 4, 128), f32)),
+        wavlm_extractor=WavLMFeatureExtractor(enc(WavLMModel(64, 2, 4, 128), f32)),
+        config=cfg)
+
+
+def a2v_models(pipe):
+    return dict(pipe.pose2vid.models(), smga=pipe.smga.model, clip=pipe.clip_model,
+                wav2vec2=pipe.audio_processor.model, wavlm=pipe.wavlm_extractor.model)
+
+
+def run_a2v_small(torch, tmp: str):
+    """Tiny audio2vid, one set of weights and draws, three ways: f32 on the
+    CPU (the reference), the card's dtypes on the CPU (plain versions) and
+    on the card (kernels). The Stage-1 decoder's output layer is set to the
+    default skeleton plus a small input-dependent part, so the poses stay in
+    the 64^2 frame and the masks are not constant (random poses fill the
+    frame with the face box, and a constant mask's min-max normalisation is
+    rounding noise). Keypoints (normalised units, floored at 1e-5: both
+    Stage-1 runs are f32) and frames: the card's mean error against the
+    reference within SMALL_ERR_FACTOR x the plain run's."""
+    import numpy as np
+
+    from mmgt_tpu_torch.data.conditioning import normalize_keypoints
+    from mmgt_tpu_torch.data.pose_init import default_skeleton
+    from mmgt_tpu_torch.diffusion.gesture import GestureDiffusionSchedule
+    from mmgt_tpu_torch.pipelines.pose2vid import init_random_params
+
+    ref_pipe = tiny_a2v(torch, "cpu", torch.float32)
+    gen = torch.Generator().manual_seed(SEED + 22)
+    for name, m in a2v_models(ref_pipe).items():
+        if name not in ref_pipe.pose2vid.models():
+            init_random_params(m, gen, 0.05)
+    init_random_params(ref_pipe.pose2vid.audio_proj, gen, 0.05)
+    with torch.no_grad():
+        fl = ref_pipe.smga.model.final_layer
+        fl.weight.mul_(1e-3)
+        fl.bias.copy_(torch.from_numpy(normalize_keypoints(default_skeleton(64, 64))))
+    runs = {"cpu_f32": ref_pipe, "cpu_bf16": tiny_a2v(torch, "cpu", torch.bfloat16),
+            "card_bf16": tiny_a2v(torch, "cuda", torch.bfloat16)}
+    for tag, pipe in runs.items():
+        if pipe is not ref_pipe:
+            for name, m in a2v_models(ref_pipe).items():
+                a2v_models(pipe)[name].load_state_dict(m.state_dict())
+    wav = write_wav(tmp, A2V_SECONDS, SEED + 23)
+    image = np.random.default_rng(SEED + 24).uniform(size=(64, 64, 3)).astype(np.float32)
+    init_kp = default_skeleton(64, 64)
+    g = torch.Generator().manual_seed(SEED + 25)
+    draws = {"pose": [GestureDiffusionSchedule.draws((1, 80, 402), 5, g) for _ in range(2)],
+             "latents": torch.randn(8, 8, 8, 4, generator=g)}
+    outs = {}
+    for tag, pipe in runs.items():
+        out = pipe(wav, image, init_kp, draws=draws)
+        outs[tag] = (normalize_keypoints(out["keypoints"]), out["frames"])
+    errs = {tag: [float(np.abs(outs[tag][i] - outs["cpu_f32"][i]).mean()) for i in (0, 1)]
+            for tag in ("cpu_bf16", "card_bf16")}
+    log(f"a2v_small: mean abs err vs CPU f32 (keypoints in normalised units, frames): plain "
+        f"on the CPU {errs['cpu_bf16']}, kernels on the card {errs['card_bf16']} (tol: "
+        f"{SMALL_ERR_FACTOR}x the plain error; keypoints floored at {A2V_KP_FLOOR:g})")
+    for i, what in enumerate(("keypoints", "frames")):
+        require(all(np.isfinite(o[i]).all() for o in outs.values()),
+                f"a2v_small {what} are not finite")
+        floor = A2V_KP_FLOOR if i == 0 else 0.0
+        require(errs["card_bf16"][i] <= SMALL_ERR_FACTOR * max(errs["cpu_bf16"][i], floor),
+                f"a2v_small {what}: the card's error exceeds {SMALL_ERR_FACTOR}x the plain error")
+
+
 # ---------------------------------------------------------------- training
 def make_train_batch(torch, b: int, frames: int, size: int, seed: int, device="cpu"):
     """A seeded random Stage-2 batch, so that the loss is not trivially 0."""
@@ -853,6 +1266,7 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mmgt_tpu_torch import ops
+    from mmgt_tpu_torch.device import disable_tf32
     from mmgt_tpu_torch.ops import _build
     from mmgt_tpu_torch.ops import attention as A
     from mmgt_tpu_torch.ops import fused_ln as L
@@ -864,8 +1278,7 @@ def main(argv) -> int:
     if argv not in ([], ["profile"]):
         print("usage: python3 chip_smoke.py [profile]", file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    disable_tf32()
 
     t0 = time.perf_counter()
     _build.build()
@@ -877,6 +1290,8 @@ def main(argv) -> int:
         run_profile(torch, Pose2VideoPipeline)
         run_profile_train(torch, Stage2Trainer)
     else:
+        kernel_mods = {"flash_attention": A, "group_norm": N, "ln_projections": L,
+                       "motion_attention": M}
         t0 = time.perf_counter()
         recs = {"flash_attention": check_k1(torch, A), "group_norm": check_k2(torch, N),
                 "ln_projections": check_k3(torch, L), "motion_attention": check_k4(torch, M),
@@ -893,6 +1308,12 @@ def main(argv) -> int:
         run_small(torch, Pose2VideoPipeline)
         log(f"main + small: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            a2v_counts, a2v_calls = run_a2v(torch, ops, kernel_mods, tmp)
+            a2v_per_kernel = check_a2v_calls(torch, a2v_calls, A, N, L, M)
+            run_a2v_small(torch, tmp)
+        log(f"a2v + a2v_small: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         train_counts, train_per_step = run_train(torch, ops, Stage2Trainer)
         run_train_small(torch, Pose2VideoPipeline, Stage2Trainer)
         log(f"train + train_small: {time.perf_counter() - t0:.1f} s")
@@ -902,7 +1323,9 @@ def main(argv) -> int:
             main_counts = train_counts if name == "flash_attention_bwd" else counts
             entry = dict(
                 name=title, route=route, source=source, replaces=replaces,
-                launches=main_counts[name], launches_per_step=per_step[name],
+                launches=main_counts[name], a2v_launches=a2v_counts[name],
+                a2v_calls=a2v_per_kernel.get(name),
+                launches_per_step=per_step[name],
                 train_launches_per_step=train_per_step[name],
                 max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],

@@ -19,3 +19,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "available; pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+def disable_tf32() -> None:
+    """Run f32 matrix products and convolutions in full f32 on the card.
+    PyTorch lets cuDNN convolutions use TF32 by default; the port's f32
+    models (wav2vec2, WavLM, the SMGA decoder) are held to the JAX
+    package's f32, so its entry points call this first."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

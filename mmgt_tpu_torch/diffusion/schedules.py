@@ -61,3 +61,6 @@ class ScheduleTables:
         self.sqrt_alphas_cumprod = np.sqrt(ac).astype(np.float32)
         self.sqrt_one_minus_alphas_cumprod = np.sqrt(1 - ac).astype(np.float32)
         self.snr = (ac / (1.0 - ac)).astype(np.float32)
+        with np.errstate(divide="ignore"):  # zero-terminal-SNR schedules end at ac = 0
+            self.sqrt_recip_alphas_cumprod = np.sqrt(1.0 / ac).astype(np.float32)
+            self.sqrt_recipm1_alphas_cumprod = np.sqrt(1.0 / ac - 1.0).astype(np.float32)

@@ -30,6 +30,10 @@ on a CUDA tensor they launch K1 / K5 or raise. `attention_plain` is also
 what the MM-HAA audio cross-attention uses directly: its 32-token KV runs
 the XLA math in the JAX package too (`dot_product_attention` picks
 `_xla_attention` there).
+
+`dot_product_attention` is the JAX package's routing function of the same
+name for the encoders and Stage 1 (CLIP, wav2vec2, SMGA): the plain math
+under 512 tokens, K1 (in bf16) at 512 or more on both sides.
 """
 from __future__ import annotations
 
@@ -252,3 +256,26 @@ def flash_attention(
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_lens, k_bank, v_bank, scale, return_lse)
     return _launch(q, k, v, kv_lens, k_bank, v_bank, scale, return_lse)
+
+
+FLASH_MIN_SEQ = 512  # both sides at least this long: K1 (the JAX package's rule)
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Full attention over (B, S, H, D), routed as the JAX package's
+    `dot_product_attention` (`mmgt_tpu/ops/attention.py:679-688`): the plain
+    math (`attention_plain`, which is `_xla_attention`'s) on the CPU or when
+    either side has fewer than 512 tokens (CLIP's 257, SMGA's 80-82,
+    wav2vec2's frames of a clip up to ~20 s), K1 on a CUDA tensor otherwise.
+    K1 takes bf16 only: f32 inputs (wav2vec2 on long audio) are rounded to
+    bf16 around it and its output cast back; chip_smoke.py states that
+    route's error against the f32 plain version."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if k.shape[1] == 1:  # softmax over a single key is identically 1
+        return v.expand(q.shape[0], q.shape[1], *v.shape[2:]).to(q.dtype)
+    if q.device.type == "cpu" or min(q.shape[1], k.shape[1]) < FLASH_MIN_SEQ:
+        return attention_plain(q, k, v, scale=scale)
+    bf = torch.bfloat16
+    return flash_attention(q.to(bf), k.to(bf), v.to(bf), scale=scale).to(q.dtype)

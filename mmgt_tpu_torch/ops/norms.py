@@ -103,13 +103,16 @@ def gn_plan(n: int, l: int, c: int, groups: int, dtype=torch.bfloat16) -> dict:
     """K2's plan for x (n, l, c) in `dtype`, from the shape alone.
 
     Resident (one launch, x read once) where a row fits the shared memory of
-    a cluster of k <= 16 CTAs: the smallest k whose slabs leave room for two
-    CTAs an SM (one CTA's load then overlaps the other's stores), else k =
-    16 at one CTA an SM; k is raised towards 132 / n CTAs (at least 8 rows
-    a CTA) so that few rows still spread over the card. Streaming (two
-    launches, x read twice) for larger rows, split into enough CTAs for
-    about four an SM. Raises where the kernel cannot take the shape. The
-    result is cached and shared: do not modify it."""
+    a cluster of k <= 16 CTAs. k is only ever one that fits (`fits`; with
+    many groups the cluster's partials grow with k, so the k that fit need
+    not be a run up to 16): the smallest k whose slabs leave room for two
+    CTAs an SM (one CTA's load then overlaps the other's stores), else the
+    largest k that fits, at one CTA an SM; k is then raised to the largest
+    fitting k towards 132 / n CTAs (at least 8 rows a CTA) so that few rows
+    still spread over the card. Streaming (two launches, x read twice)
+    where no k fits, split into enough CTAs for about four an SM. Raises
+    where the kernel cannot take the shape. The result is cached and
+    shared: do not modify it."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"K2 takes bf16 or f32 x, got {dtype}")
     esize = 2 if dtype == torch.bfloat16 else 4
@@ -122,8 +125,9 @@ def gn_plan(n: int, l: int, c: int, groups: int, dtype=torch.bfloat16) -> dict:
     fits = [k for k in range(1, MAX_CLUSTER + 1) if smem(k) <= SMEM_LIMIT]
     if fits:
         two = [k for k in fits if smem(k) <= TWO_CTAS]
-        k = two[0] if two else MAX_CLUSTER
-        k = max(k, min(MAX_CLUSTER, -(-SMS // n), max(1, l // 8)))
+        k = two[0] if two else fits[-1]
+        spread = min(MAX_CLUSTER, -(-SMS // n), max(1, l // 8))
+        k = max([k] + [j for j in fits if j <= spread])
         rows = -(-l // k)
         return dict(regime="resident", k=k, threads=threads, rows=rows, smem=smem(k),
                     slab=rows * c * esize, ws=0)

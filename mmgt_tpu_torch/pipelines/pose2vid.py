@@ -52,6 +52,21 @@ def _largest_divisor_at_most(n: int, cap: int) -> int:
     return 1
 
 
+@torch.no_grad()
+def init_random_params(model: nn.Module, gen: torch.Generator, std: float = 0.02) -> nn.Module:
+    """Seeded random weights for an inference model, in place: norm scales
+    1, every other tensor N(0, std) drawn from `gen` (on the model's
+    device); the model is put in eval mode without gradients."""
+    model.eval().requires_grad_(False)
+    for mod in model.modules():
+        for name, p in mod.named_parameters(recurse=False):
+            if isinstance(mod, (GroupNorm, LayerNorm)) and name == "weight":
+                p.fill_(1.0)
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * std)
+    return model
+
+
 @dataclasses.dataclass(eq=False)
 class Pose2VideoPipeline:
     vae: AutoencoderKL
@@ -107,13 +122,7 @@ class Pose2VideoPipeline:
         N(0, std) (zero-initialised branches are not left at zero)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         for model in self.models().values():
-            model.eval().requires_grad_(False)
-            for mod in model.modules():
-                for name, p in mod.named_parameters(recurse=False):
-                    if isinstance(mod, (GroupNorm, LayerNorm)) and name == "weight":
-                        p.fill_(1.0)
-                    else:
-                        p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * std)
+            init_random_params(model, gen, std)
 
     def _bank_shapes(self, h8: int, w8: int):
         """(tokens, channels) of the 16 banks in the order the denoiser
@@ -144,11 +153,13 @@ class Pose2VideoPipeline:
     def __call__(self, ref_image, pose_video, clip_embed, masks, audio_embeds=None,
                  num_inference_steps: int = 30, guidance_scale: float = 3.5,
                  motion_scale: Sequence[float] = (1.0, 1.0, 1.0),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, latents=None):
         """ref_image (1, H, W, 3) in [-1, 1]; pose_video (1, F, H, W, 3) in
         [0, 1]; clip_embed (1, 1, 768); masks: 3 levels x (full, face, lip),
-        each (1, F, L_level); audio_embeds (1, F, 5, 12, 768) or None.
-        Returns (1, F, H, W, 3) frames on the pipeline's device."""
+        each (1, F, L_level); audio_embeds (1, F, 5, 12, 768) or None;
+        latents: the initial noise (F, H/8, W/8, 4), else drawn from
+        `generator`. Returns (1, F, H, W, 3) frames on the pipeline's
+        device."""
         dev = self.device
         move = lambda t: None if t is None else t.to(dev)
         masks = tuple(tuple(move(m) for m in lv) for lv in masks)
@@ -162,7 +173,7 @@ class Pose2VideoPipeline:
         self._launches_at = launch_counts()
         t0 = time.perf_counter()
         cond, latents = self._prepare(move(ref_image), move(pose_video), move(clip_embed),
-                                      masks, move(audio_embeds), generator)
+                                      masks, move(audio_embeds), generator, latents)
         t0 = self._phase("prepare", t0)
         latents, _ = self._denoise_chunk(latents, init_solver_carry(latents), cond, tables,
                                          windows, guidance_scale, tuple(motion_scale))
@@ -182,8 +193,9 @@ class Pose2VideoPipeline:
 
     @torch.no_grad()
     def _prepare(self, ref_image, pose_video, clip_embed, masks, audio_embeds=None,
-                 generator: Optional[torch.Generator] = None):
-        """Reference branch + conditioning features + initial noise."""
+                 generator: Optional[torch.Generator] = None, latents=None):
+        """Reference branch + conditioning features + initial noise (drawn
+        from `generator` unless `latents` is given)."""
         dtype, dev = self.dtype, self.device
         f = pose_video.shape[1]
         w = self._num_windows(f)
@@ -200,8 +212,12 @@ class Pose2VideoPipeline:
         ctx = clip_embed.to(dtype)
         ctx_cfg = torch.cat([torch.zeros_like(ctx).repeat(mb, 1, 1), ctx.repeat(mb, 1, 1)], 0)
         h8, w8 = ref_latent.shape[1], ref_latent.shape[2]
-        latents = torch.randn((f, h8, w8, 4), generator=generator, dtype=torch.float32,
-                              device=dev)
+        if latents is None:
+            latents = torch.randn((f, h8, w8, 4), generator=generator, dtype=torch.float32,
+                                  device=dev)
+        elif tuple(latents.shape) != (f, h8, w8, 4):
+            raise ValueError(f"latents {tuple(latents.shape)} do not match {(f, h8, w8, 4)}")
+        latents = latents.to(dev, torch.float32)
         cond = {
             "banks": banks,
             "banks_kv": banks_kv,

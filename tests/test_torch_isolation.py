@@ -25,6 +25,15 @@ bad = sorted(k for k in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
+new = {"mmgt_tpu_torch.config", "mmgt_tpu_torch.data.dsp", "mmgt_tpu_torch.data.audio",
+       "mmgt_tpu_torch.data.rasterize", "mmgt_tpu_torch.data.conditioning",
+       "mmgt_tpu_torch.data.pose_init", "mmgt_tpu_torch.models.clip_vision",
+       "mmgt_tpu_torch.models.wav2vec2", "mmgt_tpu_torch.models.wavlm",
+       "mmgt_tpu_torch.models.smga", "mmgt_tpu_torch.ops.image",
+       "mmgt_tpu_torch.diffusion.gesture", "mmgt_tpu_torch.training.stage1",
+       "mmgt_tpu_torch.pipelines.audio2vid", "mmgt_tpu_torch.utils.media",
+       "mmgt_tpu_torch.scripts.audio2vid"}
+assert new <= set(names), sorted(new - set(names))
 """
 
 
@@ -52,3 +61,11 @@ def test_trainer_build_without_device_and_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Stage2Trainer.build()
+
+
+def test_audio2vid_build_without_device_and_without_cuda_raises(monkeypatch):
+    from mmgt_tpu_torch.pipelines.audio2vid import Audio2VideoPipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Audio2VideoPipeline.build()

@@ -143,6 +143,41 @@ def test_group_norm_kernel_every_cluster_size_of_the_path(gen):
                                                                             "silu"))
 
 
+# wav2vec2's conv-0 GroupNorm: 512 groups of one channel, f32, a 4 s clip's
+# 12,799 frames (streaming); and shapes whose plan once asked for more shared
+# memory than a block has (now resident in smaller clusters)
+@pytest.mark.parametrize("shape,groups,xdtype,regime", [
+    ((1, 12799, 512), 512, F32, "streaming"),
+    ((2, 1001, 512), 512, F32, "streaming"),
+    ((1, 64, 768), 768, F32, "resident"),
+    ((1, 64, 1024), 1024, BF, "resident"),
+    ((1, 32, 1536), 768, F32, "resident"),
+])
+def test_group_norm_kernel_many_groups(gen, shape, groups, xdtype, regime):
+    plan = N.gn_plan(*shape, groups, xdtype)
+    assert plan["regime"] == regime and plan["smem"] <= N.SMEM_LIMIT
+    c = shape[-1]
+    x = _gn_input(gen, shape, groups, xdtype)
+    w, b = _bf(gen, c).to(F32), _bf(gen, c).to(F32)
+    before = N.LAUNCHES
+    got = N.group_norm(x, groups, w, b, 1e-5)
+    assert N.LAUNCHES == before + 1
+    _check(got, N.group_norm_plain(x, groups, w, b, 1e-5))
+
+
+@pytest.mark.parametrize("sq,launches", [(600, 1), (257, 0)])
+def test_dot_product_attention_f32_route(gen, sq, launches):
+    """f32 (B, S, H, D) at 512 tokens or more goes through K1 in bf16 and
+    back (wav2vec2 on clips over ~20 s); under 512 it is the plain math.
+    Against the f32 plain version: the inputs' bf16 rounding, within 2 bf16
+    ulps of the largest output."""
+    q, k, v = (torch.randn(1, sq, 12, 64, generator=gen, device="cuda") for _ in range(3))
+    before = A.LAUNCHES
+    got = A.dot_product_attention(q, k, v)
+    assert A.LAUNCHES == before + launches and got.dtype == torch.float32
+    _check(got, A.attention_plain(q, k, v))
+
+
 @pytest.mark.parametrize("n_w", [1, 2, 3])
 def test_ln_projections_kernel(gen, n_w):
     c = 320

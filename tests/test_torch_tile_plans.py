@@ -228,3 +228,49 @@ def test_gn_plan_streams_rows_larger_than_a_cluster(shape):
 def test_gn_plan_raises_on_shapes_it_does_not_take(n, l, c, groups, dtype):
     with pytest.raises(ValueError):
         N.gn_plan(n, l, c, groups, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [256, 384, 512, 640, 768, 1024, 1280, 1536, 2048])
+def test_gn_plan_never_exceeds_shared_memory(c, dtype):
+    """Over C or C/2 groups and L from 8 to 1600 (many groups make the
+    cluster's partials grow with k, so the k that fit are not a run up to
+    16): a resident plan fits 227 KB with a k that fits, and the largest
+    fitting k where none leaves room for two CTAs an SM; else the row
+    streams. Wherever a smaller cluster fits, the shape stays resident."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    for groups in (c, c // 2):
+        for l in (8, 16, 32, 64, 100, 128, 200, 256, 333, 400, 512, 624, 625, 700, 800,
+                  1024, 1200, 1600):
+            plan = N.gn_plan(1, l, c, groups, dtype)
+            smem = lambda k: N.gn_resident_smem(-(-l // k), c, groups, esize, k)
+            fits = [k for k in range(1, N.MAX_CLUSTER + 1) if smem(k) <= SMEM]
+            if not fits:
+                assert plan["regime"] == "streaming", (l, c, groups)
+                assert plan["smem"] == N.gn_stream_smem(c, groups, esize) <= SMEM
+                continue
+            assert plan["regime"] == "resident", (l, c, groups)
+            assert plan["k"] in fits and plan["smem"] == smem(plan["k"]) <= SMEM
+            if all(smem(k) > N.TWO_CTAS for k in fits):
+                assert plan["k"] == max(fits), (l, c, groups)
+
+
+@pytest.mark.parametrize("shape,dtype", [((1, 64, 768, 768), torch.float32),
+                                         ((1, 64, 1024, 1024), torch.bfloat16),
+                                         ((1, 32, 1536, 768), torch.float32)])
+def test_gn_plan_formerly_over_the_limit(shape, dtype):
+    """Three shapes whose plan once took k = 16 without checking that it
+    fits (233,488, 311,312 and 236,560 bytes): now a smaller cluster."""
+    plan = N.gn_plan(*shape, dtype)
+    assert plan["regime"] == "resident" and plan["k"] < N.MAX_CLUSTER
+    assert plan["smem"] <= SMEM
+
+
+@pytest.mark.parametrize("samples", [51200, 64000, 102400])
+def test_gn_plan_wav2vec2_conv0_streams(samples):
+    """wav2vec2's conv-0 GroupNorm (512 groups of one channel, f32) on a
+    3.2 s, 4 s and 6.4 s clip: streamed in about 4 CTAs an SM."""
+    l = (samples - 10) // 5 + 1
+    plan = N.gn_plan(1, l, 512, 512, torch.float32)
+    assert plan["regime"] == "streaming" and plan["k"] >= 3 * N.SMS
+    assert plan["smem"] == 14336 and plan["ws"] == plan["k"] * 2 * 512
