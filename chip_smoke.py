@@ -55,14 +55,39 @@ Phases, in order; any failure exits non-zero:
      weights and draws, three ways as in 5; the keypoints and the frames
      on the card within SMALL_ERR_FACTOR x the plain error against CPU
      f32;
-  8. train: Stage2Trainer at full width, 512x512, 12 frames, batch 1,
+  8. dpm: Pose2VideoPipeline as in 4 with DPM-Solver++(2M) from
+     `make_scheduler` at DPM_STEPS (15) steps: finite frames, K1-K4
+     launched (K5 not), the seconds per phase and the peak memory;
+  9. dpm_small: the small pipeline of 5 sampling with DPM++ (4 steps),
+     three ways as in 5, on the latents and the frames;
+ 10. pose2img: Pose2ImagePipeline at full width (a denoiser without audio
+     or motion modules), one 512x512 image, 20 DDIM steps: a finite image
+     in [0, 1], K1-K3 launched (K4 and K5 not); then pose2img_small, a
+     tiny one three ways;
+ 11. lmks2vid: Lmks2VideoPipeline at full width (main's pipeline and two
+     guiders), 16 frames, STEPS steps: finite frames, K1-K4 launched; then
+     lmks2vid_small, a tiny one three ways;
+ 12. weights: a reference-layout weights directory written in fp16 from
+     seeded full-width port modules (net-*.pth with the Net wrapper's
+     prefixes, the SD VAE, an SMGA checkpoint with EMA weights, `module.`
+     and packed q/k/v, CLIP, wav2vec2 and WavLM with weight-normed
+     positional convs, WavLM in its {"model", "cfg"} wrapper), after a
+     free-space check, loaded onto the card by `load_all_weights`: every
+     tensor equal to what was written cast to its dtype, no model
+     random-filled; the bytes and the write and load seconds; wav2vec2's
+     embeddings with bf16 values against fp16 values; then the pose2vid
+     CLI's `run` on the loaded pipeline (16 frames, STEPS steps): finite
+     frames, K1-K4 launched.
+     Phases 8, 10, 11 and 12's CLI run record their launches and replay
+     each signature not replayed before, as 6 does;
+ 13. train: Stage2Trainer at full width, 512x512, 12 frames, batch 1,
      remat, TRAIN_STEPS steps on a seeded random batch: finite losses, the
      f32 masters of every trainable tensor moved, every frozen tensor
      bitwise unchanged, K5 launched EXPECTED_K5_PER_STEP times in every
      step and K1-K4 at least once (the counts include the checkpointed
      recompute), the seconds of the steps after the first and the peak
      memory;
-  9. train_small: a tiny trainer (the small pipeline's sizes, no remat) with
+ 14. train_small: a tiny trainer (the small pipeline's sizes, no remat) with
      one set of weights and draws, three ways as in 5; the loss and the
      flattened trainable gradients against CPU f32, the card's mean error
      within SMALL_ERR_FACTOR x the plain bf16 error.
@@ -109,6 +134,8 @@ A2V_KP_FLOOR = 1e-5
 A2V_ROW_CHUNK = 4096  # K3 rows held against the plain version per chunk
 TRAIN_STEPS = 3
 TRAIN_FRAMES = 12
+DPM_STEPS = 15  # the JAX bench's dpm15 row
+POSE2IMG_STEPS = 20  # Pose2ImagePipeline's default
 # the denoiser's 16 bank self-attentions less down_0_attn_0 (nothing
 # upstream of it is trained), plus the 6 self-attentions of the trained
 # audio blocks
@@ -809,17 +836,20 @@ class LaunchRecorder:
             mod._launch = self.saved[name]
 
 
-def check_a2v_calls(torch, calls, A, N, L, M):
-    """Every launch signature the a2v call recorded, replayed on seeded
+def check_a2v_calls(torch, calls, A, N, L, M, tag="a2v", checked=None):
+    """Every launch signature a recorded call made, replayed on seeded
     random inputs of the same shapes, strides and dtypes (K1's kv_lens
     as recorded): the kernel over the whole tensor, held against its plain
     version on the first, middle and last batch rows (K3: the first,
     middle and last A2V_ROW_CHUNK rows of x), where an offset past 2^31
     bytes would show, at the kernels rows' tolerances. Each signature's
     kernel time and bound; summed over the call's launches, each kernel's
-    device time and bound per a2v call."""
+    device time and bound per call. `checked` maps the signatures an
+    earlier call replayed to `replay_call`'s result: those are not
+    replayed again."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    checked = {} if checked is None else checked
 
     def make(d, scale=1.0, shift=0.0):
         """A seeded random tensor of descriptor d's layout (None for None)."""
@@ -838,109 +868,122 @@ def check_a2v_calls(torch, calls, A, N, L, M):
             return F32_REL_TOL * want.abs().max().item()
         return ulp_tol(want)
 
-    per_kernel, rows, worst = {}, [], 0.0
+    per_kernel, worst, replayed = {}, 0.0, 0
     for (kern, sig), (count, lens) in sorted(calls.items(), key=lambda kv: str(kv[0])):
-        if kern == "flash_attention":
-            q, k, v, _, kb, vb = map(make, sig[:6])
-            scale, lse = sig[6][1], sig[7][1]
-            kl = None if lens is None else lens.to(dev)
-            fn = lambda: A.flash_attention(q, k, v, kl, kb, vb, scale, lse)
-            got = fn()
-            got, got_lse = got if lse else (got, None)
-            err, tol = 0.0, 0.0
-            for i in picks(q.shape[0]):
-                r = slice(i, i + 1)
-                want = A.attention_plain(q[r], k[r], v[r], None if kl is None else kl[r], kb, vb,
-                                         scale, lse)
-                want, want_lse = want if lse else (want, None)
-                if lse:
-                    require(max_err(got_lse[r], want_lse) <= 1e-3,
-                            f"a2v K1 {tuple(q.shape)} row {i}: lse err")
-                err, tol = max(err, max_err(got[r], want)), max(tol, ulp_tol(want))
-                del want, want_lse
-            b, sq, h, d = q.shape
-            valid = int(kl.sum().item()) if kl is not None else b * (k.shape[1] + (
-                0 if kb is None else kb.shape[1]))
-            flops, nb = 4.0 * h * d * sq * valid, nbytes(q, k, v, kb, vb, got, got_lse)
-            what = (f"q {tuple(q.shape)} K/V {tuple(k.shape)}"
-                    + ("" if kb is None else f" + bank {tuple(kb.shape)}")
-                    + ("" if kl is None else " kv_lens") + (" lse" if lse else ""))
-            inputs = (q, k, v, kb, vb)
-        elif kern == "group_norm":
-            x, w, bb = make(sig[0]), make(sig[2]), make(sig[3])
-            groups, eps, act = sig[1][1], sig[4][1], sig[5][1]
-            c = x.shape[-1]
-            ch = torch.arange(c, device=dev)
-            x.copy_((x.float() * (1 + ch / c) + 3.0 * (ch // (c // groups))).to(x.dtype))
-            fn = lambda: N.group_norm(x, groups, w, bb, eps, act)
-            got = fn()
-            err, tol = 0.0, 0.0
-            for i in picks(x.shape[0]):
-                want = N.group_norm_plain(x[i:i + 1], groups, w, bb, eps, act)
-                err, tol = max(err, max_err(got[i:i + 1], want)), max(tol, tol_for(want))
-            flops, nb = 10.0 * x.numel(), nbytes(x, w, bb, got)
-            plan = N.gn_plan(x.shape[0], x.numel() // (x.shape[0] * c), c, groups, x.dtype)
-            what = (f"x {tuple(x.shape)} {str(x.dtype)[6:]}, {groups} groups"
-                    + (f", {act}" if act else "") + f", {plan['regime']} k = {plan['k']}")
-            inputs = (x, w, bb)
-        elif kern == "ln_projections":
-            xd, gd, btd, wsd, bsd, eps = sig
-            x = make(xd)
-            c = x.shape[-1]
-            gam, bet = make(gd, 0.1, 1.0), make(btd, 0.1)
-            ws = [make(d_, 1 / math.sqrt(c)) for d_ in wsd[1]]
-            bs = [make(d_, 0.1) if d_[0] == "T" else None for d_ in bsd[1]]
-            eps = eps[1]
-            fn = lambda: L.ln_projections(x, gam, bet, ws, bs, eps)
-            got = fn()
-            x2, m = x.reshape(-1, c), x.numel() // c
-            err, tol = 0.0, 0.0
-            for i in sorted({0, max(m - A2V_ROW_CHUNK, 0) // 2, max(m - A2V_ROW_CHUNK, 0)}):
-                r = slice(i, min(i + A2V_ROW_CHUNK, m))
-                want = L.ln_projections_plain(x2[r], gam, bet, ws, bs, eps)
-                for o, w_ in zip(got, want):
-                    err = max(err, max_err(o.reshape(-1, o.shape[-1])[r], w_))
-                    tol = max(tol, ulp_tol(w_))
-            flops = 2.0 * m * c * sum(w_.shape[0] for w_ in ws)
-            nb = nbytes(x, gam, bet, *ws, *bs, *got)
-            what = f"x {tuple(x.shape)}, W {[tuple(w_.shape) for w_ in ws]}" + (
-                ", bias" if bs[0] is not None else "")
-            inputs = (x, gam, bet, *ws, *bs)
-        else:
-            xd, gd, btd, ped, *wd, bod, heads, eps = sig
-            x = make(xd)
-            b, f, l, c = x.shape
-            args = (x, make(gd, 0.1, 1.0), make(btd, 0.1), make(ped),
-                    *(make(d_, 1 / math.sqrt(c)) for d_ in wd), make(bod, 0.1),
-                    heads[1], eps[1])
-            fn = lambda: M.motion_attention(*args)
-            got = fn()
-            err, tol = 0.0, 0.0
-            for i in picks(b):
-                want = M.motion_attention_plain(x[i:i + 1], *args[1:])
-                err, tol = max(err, max_err(got[i:i + 1], want)), max(tol, ulp_tol(want))
-            flops = 2.0 * b * f * l * c * c * 4 + 4.0 * b * l * f * f * c
-            nb = nbytes(*args[:9], got)
-            what = f"x {tuple(x.shape)}, {heads[1]} heads"
-            inputs = args[:9]
-        require(math.isfinite(err) and err <= tol,
-                f"a2v {kern} at {what}: err {err} > {tol}")
+        key = (kern, sig, None if lens is None else tuple(lens.tolist()))
+        if key not in checked:
+            checked[key] = replay_call(torch, kern, sig, lens, make, picks, tol_for,
+                                       A, N, L, M, tag)
+            replayed += 1
+            err, tol, ms, bms, what = checked[key]
+            log(f"{tag}_calls {kern} x{count}: {what}: max_abs_err {err:.3e} (tol {tol:.3e}); "
+                f"ms {ms:.3f} bound_ms {bms:.4f}")
+        err, tol, ms, bms, what = checked[key]
         worst = max(worst, err / tol if tol else 0.0)
-        ms = time_ms(fn, iters=3, warmup=1)
-        bms, _ = bound_ms(flops, nb)
-        rows.append(dict(kernel=kern, at=what, calls=count, max_abs_err=err, tol=tol, ms=ms,
-                         bound_ms=bms))
-        log(f"a2v_calls {kern} x{count}: {what}: max_abs_err {err:.3e} (tol {tol:.3e}); "
-            f"ms {ms:.3f} bound_ms {bms:.4f}")
         k = per_kernel.setdefault(kern, dict(signatures=0, launches=0, ms=0.0, bound_ms=0.0))
         k["signatures"] += 1
         k["launches"] += count
         k["ms"] += count * ms
         k["bound_ms"] += count * bms
-        del got, inputs, fn
-        torch.cuda.empty_cache()
-    log(json.dumps({"a2v_calls": {"per_kernel": per_kernel, "worst_err_over_tol": worst}}))
+    log(json.dumps({f"{tag}_calls": {"per_kernel": per_kernel, "worst_err_over_tol": worst,
+                                     "replayed": replayed, "signatures": len(calls)}}))
     return per_kernel
+
+
+def replay_call(torch, kern, sig, lens, make, picks, tol_for, A, N, L, M, tag):
+    """One recorded signature against its plain version: (err, tol, ms,
+    bound_ms, what it was)."""
+    dev = "cuda"
+    if kern == "flash_attention":
+        q, k, v, _, kb, vb = map(make, sig[:6])
+        scale, lse = sig[6][1], sig[7][1]
+        kl = None if lens is None else lens.to(dev)
+        fn = lambda: A.flash_attention(q, k, v, kl, kb, vb, scale, lse)
+        got = fn()
+        got, got_lse = got if lse else (got, None)
+        err, tol = 0.0, 0.0
+        for i in picks(q.shape[0]):
+            r = slice(i, i + 1)
+            want = A.attention_plain(q[r], k[r], v[r], None if kl is None else kl[r], kb, vb,
+                                     scale, lse)
+            want, want_lse = want if lse else (want, None)
+            if lse:
+                require(max_err(got_lse[r], want_lse) <= 1e-3,
+                        f"{tag} K1 {tuple(q.shape)} row {i}: lse err")
+            err, tol = max(err, max_err(got[r], want)), max(tol, ulp_tol(want))
+            del want, want_lse
+        b, sq, h, d = q.shape
+        valid = int(kl.sum().item()) if kl is not None else b * (k.shape[1] + (
+            0 if kb is None else kb.shape[1]))
+        flops, nb = 4.0 * h * d * sq * valid, nbytes(q, k, v, kb, vb, got, got_lse)
+        what = (f"q {tuple(q.shape)} K/V {tuple(k.shape)}"
+                + ("" if kb is None else f" + bank {tuple(kb.shape)}")
+                + ("" if kl is None else " kv_lens") + (" lse" if lse else ""))
+        inputs = (q, k, v, kb, vb)
+    elif kern == "group_norm":
+        x, w, bb = make(sig[0]), make(sig[2]), make(sig[3])
+        groups, eps, act = sig[1][1], sig[4][1], sig[5][1]
+        c = x.shape[-1]
+        ch = torch.arange(c, device=dev)
+        x.copy_((x.float() * (1 + ch / c) + 3.0 * (ch // (c // groups))).to(x.dtype))
+        fn = lambda: N.group_norm(x, groups, w, bb, eps, act)
+        got = fn()
+        err, tol = 0.0, 0.0
+        for i in picks(x.shape[0]):
+            want = N.group_norm_plain(x[i:i + 1], groups, w, bb, eps, act)
+            err, tol = max(err, max_err(got[i:i + 1], want)), max(tol, tol_for(want))
+        flops, nb = 10.0 * x.numel(), nbytes(x, w, bb, got)
+        plan = N.gn_plan(x.shape[0], x.numel() // (x.shape[0] * c), c, groups, x.dtype)
+        what = (f"x {tuple(x.shape)} {str(x.dtype)[6:]}, {groups} groups"
+                + (f", {act}" if act else "") + f", {plan['regime']} k = {plan['k']}")
+        inputs = (x, w, bb)
+    elif kern == "ln_projections":
+        xd, gd, btd, wsd, bsd, eps = sig
+        x = make(xd)
+        c = x.shape[-1]
+        gam, bet = make(gd, 0.1, 1.0), make(btd, 0.1)
+        ws = [make(d_, 1 / math.sqrt(c)) for d_ in wsd[1]]
+        bs = [make(d_, 0.1) if d_[0] == "T" else None for d_ in bsd[1]]
+        eps = eps[1]
+        fn = lambda: L.ln_projections(x, gam, bet, ws, bs, eps)
+        got = fn()
+        x2, m = x.reshape(-1, c), x.numel() // c
+        err, tol = 0.0, 0.0
+        for i in sorted({0, max(m - A2V_ROW_CHUNK, 0) // 2, max(m - A2V_ROW_CHUNK, 0)}):
+            r = slice(i, min(i + A2V_ROW_CHUNK, m))
+            want = L.ln_projections_plain(x2[r], gam, bet, ws, bs, eps)
+            for o, w_ in zip(got, want):
+                err = max(err, max_err(o.reshape(-1, o.shape[-1])[r], w_))
+                tol = max(tol, ulp_tol(w_))
+        flops = 2.0 * m * c * sum(w_.shape[0] for w_ in ws)
+        nb = nbytes(x, gam, bet, *ws, *bs, *got)
+        what = f"x {tuple(x.shape)}, W {[tuple(w_.shape) for w_ in ws]}" + (
+            ", bias" if bs[0] is not None else "")
+        inputs = (x, gam, bet, *ws, *bs)
+    else:
+        xd, gd, btd, ped, *wd, bod, heads, eps = sig
+        x = make(xd)
+        b, f, l, c = x.shape
+        args = (x, make(gd, 0.1, 1.0), make(btd, 0.1), make(ped),
+                *(make(d_, 1 / math.sqrt(c)) for d_ in wd), make(bod, 0.1),
+                heads[1], eps[1])
+        fn = lambda: M.motion_attention(*args)
+        got = fn()
+        err, tol = 0.0, 0.0
+        for i in picks(b):
+            want = M.motion_attention_plain(x[i:i + 1], *args[1:])
+            err, tol = max(err, max_err(got[i:i + 1], want)), max(tol, ulp_tol(want))
+        flops = 2.0 * b * f * l * c * c * 4 + 4.0 * b * l * f * f * c
+        nb = nbytes(*args[:9], got)
+        what = f"x {tuple(x.shape)}, {heads[1]} heads"
+        inputs = args[:9]
+    require(math.isfinite(err) and err <= tol,
+            f"{tag} {kern} at {what}: err {err} > {tol}")
+    ms = time_ms(fn, iters=3, warmup=1)
+    bms, _ = bound_ms(flops, nb)
+    del got, inputs, fn
+    torch.cuda.empty_cache()
+    return err, tol, ms, bms, what
 
 
 def tiny_a2v(torch, device, dtype):
@@ -1037,6 +1080,407 @@ def run_a2v_small(torch, tmp: str):
         floor = A2V_KP_FLOOR if i == 0 else 0.0
         require(errs["card_bf16"][i] <= SMALL_ERR_FACTOR * max(errs["cpu_bf16"][i], floor),
                 f"a2v_small {what}: the card's error exceeds {SMALL_ERR_FACTOR}x the plain error")
+
+
+# ----------------------------------------------- the rest of inference
+def record_call(torch, ops, kernel_mods, fn):
+    """fn() with every launch counter set to 0 just before and read just
+    after, under the launch recorder; returns (result, counts, recorded
+    calls, seconds, peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with LaunchRecorder(torch, kernel_mods) as rec:
+        out = fn()
+        torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for name, n in counts.items():
+        require(sum(c for (k, _), (c, _) in rec.calls.items() if k == name) == n,
+                f"{name}: the recorded launches do not add up to the run's")
+    return out, counts, rec.calls, sec, torch.cuda.max_memory_allocated() / 2**30
+
+
+def require_launches(tag: str, counts: dict, launched):
+    """The kernels in `launched` ran during the phase; no other did."""
+    for name, n in counts.items():
+        if name in launched:
+            require(n > 0, f"{tag}: kernel {name} was not launched")
+        else:
+            require(n == 0, f"{tag}: kernel {name} was launched")
+
+
+def require_frames(torch, tag: str, frames, shape):
+    require(tuple(frames.shape) == shape, f"{tag}: shape {tuple(frames.shape)} != {shape}")
+    require(bool(torch.isfinite(frames).all()), f"{tag}: not finite")
+    require(frames.min().item() >= 0.0 and frames.max().item() <= 1.0, f"{tag}: outside [0, 1]")
+
+
+def run_dpm(torch, ops, kernel_mods):
+    """Pose2VideoPipeline at main's full width with DPM-Solver++(2M) from
+    `make_scheduler`, DPM_STEPS steps (the JAX bench's dpm15)."""
+    from mmgt_tpu_torch.config import SchedulerConfig
+    from mmgt_tpu_torch.diffusion import DPMSolverPlusPlus2M, make_scheduler
+    from mmgt_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline
+
+    t0 = time.perf_counter()
+    pipe = Pose2VideoPipeline.build(torch.bfloat16, device="cuda", seed=SEED, profile_phases=True,
+                                    scheduler=make_scheduler(SchedulerConfig(solver="dpm++2m")))
+    require(isinstance(pipe.scheduler, DPMSolverPlusPlus2M), "dpm: make_scheduler gave "
+            f"{type(pipe.scheduler).__name__}")
+    torch.cuda.synchronize()
+    log(f"dpm: build {time.perf_counter() - t0:.1f} s")
+    inputs = make_inputs(torch, FRAMES, SIZE, SEED)
+    frames, counts, calls, sec, peak = record_call(torch, ops, kernel_mods, lambda: pipe(
+        **inputs, num_inference_steps=DPM_STEPS, guidance_scale=GUIDANCE,
+        generator=torch.Generator(device="cuda").manual_seed(SEED)))
+    require_frames(torch, "dpm frames", frames, (1, FRAMES, SIZE, SIZE, 3))
+    require_launches("dpm", counts, INFERENCE_KERNELS)
+    t = pipe.timings
+    log(f"dpm: {DPM_STEPS} steps, {sec:.3f} s: prepare_s {t['prepare_s']:.3f} denoise_s "
+        f"{t['denoise_s']:.3f} ({t['denoise_s'] / DPM_STEPS:.4f} a step) decode_s "
+        f"{t['decode_s']:.3f}; max_memory_allocated {peak:.2f} GiB; frames mean "
+        f"{frames.mean().item():.4f} std {frames.std().item():.4f}; launches "
+        + json.dumps(counts))
+    del pipe, frames
+    torch.cuda.empty_cache()
+    return counts, calls
+
+
+def run_pose2img(torch, ops, kernel_mods):
+    """Pose2ImagePipeline at full width (no audio or motion modules), one
+    512^2 image, its default 20 DDIM steps."""
+    from mmgt_tpu_torch.pipelines.pose2img import Pose2ImagePipeline
+
+    t0 = time.perf_counter()
+    pipe = Pose2ImagePipeline.build(torch.bfloat16, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    log(f"pose2img: build {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator().manual_seed(SEED + 50)
+    ref = torch.rand(1, SIZE, SIZE, 3, generator=g) * 2 - 1
+    pose, clip = torch.rand(1, SIZE, SIZE, 3, generator=g), torch.randn(1, 1, 768, generator=g)
+    img, counts, calls, sec, peak = record_call(torch, ops, kernel_mods, lambda: pipe(
+        ref, pose, clip, num_inference_steps=POSE2IMG_STEPS, guidance_scale=GUIDANCE,
+        generator=torch.Generator(device="cuda").manual_seed(SEED)))
+    require_frames(torch, "pose2img image", img, (1, SIZE, SIZE, 3))
+    require_launches("pose2img", counts, ("flash_attention", "group_norm", "ln_projections"))
+    log(f"pose2img: {POSE2IMG_STEPS} steps, {sec:.3f} s ({sec / POSE2IMG_STEPS:.4f} a step with "
+        f"the encode and decode); max_memory_allocated {peak:.2f} GiB; image mean "
+        f"{img.mean().item():.4f} std {img.std().item():.4f}; launches " + json.dumps(counts))
+    del pipe, img
+    torch.cuda.empty_cache()
+    return counts, calls
+
+
+def run_lmks2vid(torch, ops, kernel_mods):
+    """Lmks2VideoPipeline at full width: two guiders summed into main's
+    pipeline, 16 frames, STEPS DDIM steps."""
+    from mmgt_tpu_torch.pipelines.lmks2vid import Lmks2VideoPipeline
+
+    t0 = time.perf_counter()
+    pipe = Lmks2VideoPipeline.build(torch.bfloat16, device="cuda", seed=SEED, profile_phases=True)
+    torch.cuda.synchronize()
+    log(f"lmks2vid: build {time.perf_counter() - t0:.1f} s")
+    x = make_inputs(torch, FRAMES, SIZE, SEED)
+    lmks_b = torch.rand(1, FRAMES, SIZE, SIZE, 3, generator=torch.Generator().manual_seed(SEED + 51))
+    frames, counts, calls, sec, peak = record_call(torch, ops, kernel_mods, lambda: pipe(
+        x["ref_image"], x["pose_video"], lmks_b, x["clip_embed"], x["masks"], x["audio_embeds"],
+        num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+        generator=torch.Generator(device="cuda").manual_seed(SEED)))
+    require_frames(torch, "lmks2vid frames", frames, (1, FRAMES, SIZE, SIZE, 3))
+    require_launches("lmks2vid", counts, INFERENCE_KERNELS)
+    t = pipe.base.timings
+    log(f"lmks2vid: {sec:.3f} s: " + " ".join(f"{k} {v:.3f}" for k, v in t.items())
+        + f"; max_memory_allocated {peak:.2f} GiB; launches " + json.dumps(counts))
+    del pipe, frames
+    torch.cuda.empty_cache()
+    return counts, calls
+
+
+def three_way(torch, tag: str, make, run, names):
+    """One set of weights (the f32 CPU copy's) run three ways: f32 on the
+    CPU (the reference), bf16 on the CPU (plain versions) and bf16 on the
+    card (kernels); each output's mean error on the card within
+    SMALL_ERR_FACTOR x the plain bf16 error. make(device, dtype) -> a
+    pipeline with models(); run(pipeline, device) -> the outputs."""
+    ref = make("cpu", torch.float32)
+    runs = {"cpu_f32": (ref, "cpu"), "cpu_bf16": (make("cpu", torch.bfloat16), "cpu"),
+            "card_bf16": (make("cuda", torch.bfloat16), "cuda")}
+    for pipe, _ in runs.values():
+        if pipe is not ref:
+            for name, m in ref.models().items():
+                pipe.models()[name].load_state_dict(m.state_dict())
+    outs = {k: [o.float().cpu() for o in run(pipe, dev)] for k, (pipe, dev) in runs.items()}
+    errs = {k: [(outs[k][i] - outs["cpu_f32"][i]).abs().mean().item() for i in range(len(names))]
+            for k in ("cpu_bf16", "card_bf16")}
+    log(f"{tag}: mean abs err vs CPU f32 ({', '.join(names)}): plain bf16 on the CPU "
+        f"{errs['cpu_bf16']}, kernels bf16 on the card {errs['card_bf16']} "
+        f"(tol: {SMALL_ERR_FACTOR}x the plain bf16 error)")
+    for i, what in enumerate(names):
+        require(all(bool(torch.isfinite(o[i]).all()) for o in outs.values()),
+                f"{tag} {what} are not finite")
+        require(errs["card_bf16"][i] <= SMALL_ERR_FACTOR * errs["cpu_bf16"][i],
+                f"{tag} {what}: the card's error exceeds {SMALL_ERR_FACTOR}x the plain error")
+
+
+def run_dpm_small(torch, Pose2VideoPipeline):
+    """The small pipeline of `run_small` sampling with DPM-Solver++(2M), 4
+    steps, three ways."""
+    from mmgt_tpu_torch.diffusion import DPMSolverPlusPlus2M
+    from mmgt_tpu_torch.pipelines.context import compute_context_schedule
+
+    frames, size, steps = 8, 64, 4
+    inputs = make_inputs(torch, frames, size, SEED + 12)
+    lat0 = torch.randn(frames, size // 8, size // 8, 4, generator=torch.Generator().manual_seed(
+        SEED + 13))
+    win = compute_context_schedule(steps, frames, 6, 1, 2)
+
+    def make(dev, dtype):
+        pipe = tiny_pipeline(torch, Pose2VideoPipeline, dev, dtype)
+        pipe.scheduler = DPMSolverPlusPlus2M()
+        return pipe
+
+    def run(pipe, dev):
+        d = {k: v.to(dev) for k, v in inputs.items() if k != "masks"}
+        d["masks"] = tuple(tuple(m.to(dev) for m in lv) for lv in inputs["masks"])
+        cond, _ = pipe._prepare(**d)
+        state = pipe.sampler_state(steps)
+        lat = lat0.to(dev)
+        lat, _ = pipe._denoise_chunk(lat, pipe.init_aux(state, lat), cond, state, win, GUIDANCE,
+                                     (1.0, 1.0, 1.0))
+        return lat, pipe._decode(lat)
+
+    three_way(torch, "dpm_small", make, run, ("latents", "frames"))
+
+
+def tiny_pose2img(torch, device, dtype):
+    """The small pipeline's widths, no audio or motion modules."""
+    from mmgt_tpu_torch.models.pose_guider import PoseGuider
+    from mmgt_tpu_torch.models.unet3d import DenoisingUNet3D
+    from mmgt_tpu_torch.models.unet_ref import ReferenceUNet2D
+    from mmgt_tpu_torch.models.vae import AutoencoderKL
+    from mmgt_tpu_torch.pipelines.pose2img import Pose2ImagePipeline
+
+    torch.manual_seed(SEED)
+    kw = dict(block_out_channels=(64, 128, 128, 128), heads=2)
+    pipe = Pose2ImagePipeline(
+        vae=AutoencoderKL(block_out_channels=(32, 32, 64, 64)),
+        reference_unet=ReferenceUNet2D(**kw),
+        denoising_unet=DenoisingUNet3D(**kw, use_audio_module=False, use_motion_module=False),
+        pose_guider=PoseGuider(64, (8, 16, 16, 32)))
+    for m in pipe.models().values():
+        m.to(device=device, dtype=dtype)
+    pipe.init_params(SEED, std=0.05)
+    return pipe
+
+
+def run_pose2img_small(torch):
+    """Tiny pose2img, a batch of 2 at 64^2, 3 steps, three ways."""
+    g = torch.Generator().manual_seed(SEED + 52)
+    ref, pose = torch.rand(2, 64, 64, 3, generator=g) * 2 - 1, torch.rand(2, 64, 64, 3, generator=g)
+    clip, lat0 = torch.randn(2, 1, 768, generator=g), torch.randn(2, 8, 8, 4, generator=g)
+    three_way(torch, "pose2img_small", lambda dev, dt: tiny_pose2img(torch, dev, dt),
+              lambda pipe, dev: (pipe(ref, pose, clip, num_inference_steps=3,
+                                      guidance_scale=GUIDANCE, latents=lat0),), ("image",))
+
+
+def run_lmks2vid_small(torch, Pose2VideoPipeline):
+    """Tiny lmks2vid (the small pipeline plus two small guiders), 8 frames,
+    2 steps, three ways."""
+    from mmgt_tpu_torch.models.pose_guider import PoseGuider
+    from mmgt_tpu_torch.pipelines.lmks2vid import Lmks2VideoPipeline
+    from mmgt_tpu_torch.pipelines.pose2vid import init_random_params
+
+    def make(dev, dtype):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+        guiders = {n: init_random_params(PoseGuider(64, (8, 16, 16, 32)).to(dev, dtype), gen,
+                                         0.05) for n in ("guider_a", "guider_b")}
+        return Lmks2VideoPipeline(tiny_pipeline(torch, Pose2VideoPipeline, dev, dtype), **guiders)
+
+    x = make_inputs(torch, 8, 64, SEED + 54)
+    g = torch.Generator().manual_seed(SEED + 55)
+    lmks_b, lat0 = torch.rand(1, 8, 64, 64, 3, generator=g), torch.randn(8, 8, 8, 4, generator=g)
+    three_way(torch, "lmks2vid_small", make,
+              lambda pipe, dev: (pipe(x["ref_image"], x["pose_video"], lmks_b, x["clip_embed"],
+                                      x["masks"], x["audio_embeds"], num_inference_steps=2,
+                                      guidance_scale=GUIDANCE, latents=lat0),), ("frames",))
+
+
+def pack_qkv(sd):
+    """The reference GestureDecoder's layout: each attention's q/k/v packed
+    into nn.MultiheadAttention's in_proj_weight / in_proj_bias."""
+    import re
+
+    import torch
+
+    out = dict(sd)
+    for k in list(sd):
+        m = re.match(r"(.*)\.q_proj\.(weight|bias)$", k)
+        if m:
+            base, kind = m.groups()
+            out[f"{base}.in_proj_{kind}"] = torch.cat(
+                [out.pop(f"{base}.{p}_proj.{kind}") for p in "qkv"], 0)
+    return out
+
+
+def run_weights(torch, ops, kernel_mods, tmp: str):
+    """A reference-layout weights directory at full width, written in fp16
+    from seeded port modules, loaded back by `load_all_weights` onto the
+    card: every tensor equal to what was written, cast to its target
+    dtype (wav2vec2 and WavLM: f32 modules holding bf16 values), no model
+    random-filled; then the pose2vid CLI's `run` on the loaded pipeline."""
+    import argparse
+    import shutil
+
+    import numpy as np
+
+    from mmgt_tpu_torch.config import InferenceConfig
+    from mmgt_tpu_torch.data.audio import AudioProcessor
+    from mmgt_tpu_torch.models.clip_vision import CLIPVisionModel
+    from mmgt_tpu_torch.models.wav2vec2 import Wav2Vec2Model
+    from mmgt_tpu_torch.models.wavlm import WavLMModel
+    from mmgt_tpu_torch.pipelines.pose2vid import (
+        Pose2VideoPipeline,
+        init_random_params,
+        materialize,
+    )
+    from mmgt_tpu_torch.scripts import pose2vid as cli
+    from mmgt_tpu_torch.training.stage1 import SMGA
+    from mmgt_tpu_torch.utils import convert as PC
+    from mmgt_tpu_torch.utils.weights import load_all_weights
+
+    dev, bf16, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
+    root = os.path.join(tmp, "weights")
+    t0 = time.perf_counter()
+    src = Pose2VideoPipeline.build(bf16, device="cuda", seed=SEED + 40)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    with torch.device("meta"):
+        enc = dict(clip=CLIPVisionModel(), wav2vec2=Wav2Vec2Model(), wavlm=WavLMModel())
+        smga = SMGA(feature_type="wavlm")
+    enc = {n: init_random_params(materialize({n: m}, dev, bf16 if n == "clip" else f32)[n], gen)
+           for n, m in enc.items()}
+    smga.model.to_empty(device=dev)
+    init_random_params(smga.model, gen)
+    half = lambda m: {k: v.detach().to("cpu", torch.float16) for k, v in m.state_dict().items()}
+    written = {n: half(m) for n, m in dict(src.models(), smga=smga.model, **enc).items()}
+    del src, enc, smga
+    torch.cuda.empty_cache()
+    # the values each model must hold, before the cast to its dtype
+    expected = {n: dict(sd) for n, sd in written.items()}
+
+    def weight_norm(sd, name, key):
+        """HF's and WavLM's weight_norm(dim=2) layout for a positional conv."""
+        base = key[:-len(".weight")]
+        w = sd.pop(key)
+        g = torch.sqrt((w.float() ** 2).sum((0, 1), keepdim=True)).to(torch.float16)
+        sd[base + ".weight_g"], sd[base + ".weight_v"] = g, w
+        expected[name][key] = PC.fold_weight_norm({base + ".weight_g": g,
+                                                   base + ".weight_v": w})[key]
+        return sd
+
+    prefixes = dict(reference_unet="reference_unet", denoising_unet="denoising_unet",
+                    pose_guider="pose_guider", audio_proj="audioproj")
+    ema = {f"module.{k}": v for k, v in pack_qkv(written["smga"]).items()}
+    files = {
+        "net-1000.pth": {f"{pre}.{k}": v for n, pre in prefixes.items()
+                         for k, v in written[n].items()},
+        "sd-vae-ft-mse/diffusion_pytorch_model.bin": written["vae"],
+        "image_encoder/pytorch_model.bin": written["clip"],
+        "wav2vec2-base-960h/pytorch_model.bin": weight_norm(
+            dict(written["wav2vec2"]), "wav2vec2", "encoder.pos_conv_embed.conv.weight"),
+        "wavlm/WavLM-Large.pt": {"model": weight_norm(dict(written["wavlm"]), "wavlm",
+                                                      "encoder.pos_conv.0.weight"),
+                                 "cfg": argparse.Namespace(encoder_layers=24)},
+        "smga.pt": {"ema_state_dict": ema,
+                    "model_state_dict": {k: torch.zeros_like(v) for k, v in ema.items()},
+                    "normalizer": None},
+    }
+
+    def tensor_bytes(obj):
+        if isinstance(obj, dict):
+            return sum(tensor_bytes(v) for v in obj.values())
+        return obj.numel() * obj.element_size() if isinstance(obj, torch.Tensor) else 0
+
+    need = sum(tensor_bytes(v) for v in files.values())
+    free = shutil.disk_usage(tmp).free
+    require(free > need + 2**30, f"weights: {need} bytes to write, {free} free in {tmp}")
+    log(f"weights: source models {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for rel, obj in files.items():
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save(obj, path)
+    write_s = time.perf_counter() - t0
+    on_disk = sum(os.path.getsize(os.path.join(root, rel)) for rel in files)
+    del files, ema
+
+    t0 = time.perf_counter()
+    pipe = Pose2VideoPipeline.build(bf16, device="cuda", seed=SEED + 42)
+    with torch.device("meta"):
+        smga = SMGA(feature_type="wavlm")
+    smga.model.to_empty(device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = load_all_weights(root, pipe, smga, "cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    require(out["random_fill"] == [], f"weights: random-filled {out['random_fill']}")
+    require(out["smga"] is smga and out["smga_feature_type"] == "wavlm", "weights: smga")
+    models = dict(pipe.models(), smga=smga.model, clip=out["clip_model"],
+                  wav2vec2=out["audio_processor"].model, wavlm=out["wavlm"].model)
+    n_tensors = 0
+    for name, m in models.items():
+        sd = m.state_dict()
+        require(set(sd) == set(expected[name]), f"weights: {name} keys differ")
+        for k, v in sd.items():
+            want = expected[name][k].to(dev)
+            if name in ("wav2vec2", "wavlm"):
+                require(v.dtype == f32, f"weights: {name}.{k} is {v.dtype}")
+                want = want.to(bf16)
+            require(torch.equal(v, want.to(v.dtype)),
+                    f"weights: {name}.{k} is not what was written")
+            n_tensors += 1
+    log(f"weights: wrote {on_disk} bytes ({need} of tensors, fp16) in {write_s:.1f} s; "
+        f"built the destination in {build_s:.1f} s, loaded it in {load_s:.1f} s; "
+        f"{n_tensors} tensors of {len(models)} models equal what was written, cast to "
+        "their dtypes; reports " + json.dumps(
+            {n: {k: len(v) for k, v in r.items()} for n, r in out["reports"].items()}))
+
+    # the pipeline dtype's values in an f32 wav2vec2 (as the JAX package
+    # computes) against the file's own values
+    with torch.device("meta"):
+        w2v = Wav2Vec2Model()
+    w2v = materialize({"w": w2v}, dev, f32)["w"].eval()
+    PC.load_checkpoint(w2v, [PC.load_torch_state_dict(
+        os.path.join(root, "wav2vec2-base-960h/pytorch_model.bin"))])
+    wav = write_wav(tmp, A2V_SECONDS, SEED + 43)
+    got, _ = out["audio_processor"].preprocess(wav)
+    ref, _ = AudioProcessor(w2v).preprocess(wav)
+    log(f"weights: wav2vec2 embeddings {tuple(got.shape)}, bf16-valued against fp16-valued "
+        f"weights, both computed in f32: max abs err {max_err(got, ref):.3e}, mean "
+        f"{(got - ref).abs().mean().item():.3e} (largest |y| {ref.abs().max().item():.3e})")
+    del w2v, got, ref, out, models
+
+    cfg = InferenceConfig(width=SIZE, height=SIZE, video_length=FRAMES, num_inference_steps=STEPS)
+    rng = np.random.default_rng(SEED + 44)
+    image = rng.uniform(size=(SIZE, SIZE, 3)).astype(np.float32)
+    pose = rng.uniform(size=(FRAMES, SIZE, SIZE, 3)).astype(np.float32)
+    face, lips = ((rng.uniform(size=(FRAMES, SIZE, SIZE)) > 0.7).astype(np.float32)
+                  for _ in range(2))
+    frames, counts, calls, sec, peak = record_call(
+        torch, ops, kernel_mods, lambda: cli.run(pipe, image, pose, face, lips, None, cfg, SEED))
+    require(frames.shape == (FRAMES, SIZE, SIZE, 3) and bool(np.isfinite(frames).all()),
+            f"weights: the CLI's frames {frames.shape} are not finite")
+    require_launches("weights: CLI run", counts, INFERENCE_KERNELS)
+    log(f"weights: pose2vid CLI run on the loaded pipeline, {FRAMES} frames, {STEPS} steps: "
+        f"{sec:.3f} s, max_memory_allocated {peak:.2f} GiB, frames mean {frames.mean():.4f}; "
+        f"launches " + json.dumps(counts))
+    shutil.rmtree(root)
+    del pipe, smga
+    torch.cuda.empty_cache()
+    return counts, calls
 
 
 # ---------------------------------------------------------------- training
@@ -1308,11 +1752,28 @@ def main(argv) -> int:
         run_small(torch, Pose2VideoPipeline)
         log(f"main + small: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        checked = {}
         with tempfile.TemporaryDirectory() as tmp:
             a2v_counts, a2v_calls = run_a2v(torch, ops, kernel_mods, tmp)
-            a2v_per_kernel = check_a2v_calls(torch, a2v_calls, A, N, L, M)
+            a2v_per_kernel = check_a2v_calls(torch, a2v_calls, A, N, L, M, "a2v", checked)
             run_a2v_small(torch, tmp)
-        log(f"a2v + a2v_small: {time.perf_counter() - t0:.1f} s")
+            log(f"a2v + a2v_small: {time.perf_counter() - t0:.1f} s")
+            paths = {}
+            for tag, run in (("dpm", lambda: run_dpm(torch, ops, kernel_mods)),
+                             ("dpm_small", lambda: run_dpm_small(torch, Pose2VideoPipeline)),
+                             ("pose2img", lambda: run_pose2img(torch, ops, kernel_mods)),
+                             ("pose2img_small", lambda: run_pose2img_small(torch)),
+                             ("lmks2vid", lambda: run_lmks2vid(torch, ops, kernel_mods)),
+                             ("lmks2vid_small",
+                              lambda: run_lmks2vid_small(torch, Pose2VideoPipeline)),
+                             ("weights", lambda: run_weights(torch, ops, kernel_mods, tmp))):
+                t0 = time.perf_counter()
+                got = run()
+                if got is not None:
+                    counts_, calls_ = got
+                    paths[tag] = dict(launches=counts_, calls=check_a2v_calls(
+                        torch, calls_, A, N, L, M, tag, checked))
+                log(f"{tag}: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         train_counts, train_per_step = run_train(torch, ops, Stage2Trainer)
         run_train_small(torch, Pose2VideoPipeline, Stage2Trainer)
@@ -1327,6 +1788,8 @@ def main(argv) -> int:
                 a2v_calls=a2v_per_kernel.get(name),
                 launches_per_step=per_step[name],
                 train_launches_per_step=train_per_step[name],
+                path_launches={tag: p["launches"][name] for tag, p in paths.items()},
+                path_calls={tag: p["calls"].get(name) for tag, p in paths.items()},
                 max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
                 shape=r["shape"],

@@ -1,12 +1,13 @@
 """Stage-2 conditioning (`mmgt_tpu/data/conditioning.py`): keypoints ->
-pose video + mask pyramids, on the keypoints' device.
+pose video + mask pyramids, on the keypoints' device; or, for pose2vid,
+mask videos -> mask pyramids (`masks_from_videos`).
 
 Mask semantics follow scripts/pose2vid.py:265-271 (full = clamp(1 - face
 + lips + hands, 0, 1)), as the JAX package does.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -68,3 +69,17 @@ def prepare_conditioning_from_keypoints(keypoints_abs: torch.Tensor, height: int
         "mask_videos": {"face": ras["face_mask"], "lips": ras["lips_mask"],
                         "hands": ras["hands_mask"]},
     }
+
+
+def masks_from_videos(face: torch.Tensor, lips: torch.Tensor,
+                      hands: Optional[torch.Tensor] = None, levels: int = 3,
+                      base: int = 64) -> list:
+    """pose2vid's user-given mask videos, each (T, H, W) in [0, 1] ->
+    levels x (full, face, lip) pyramid conditioning, each (1, T, L_level)
+    (`mmgt_tpu/data/conditioning.py:masks_from_videos`)."""
+    face64 = _blur_norm(face, 31, base)
+    lips64 = _blur_norm(lips, 21, base)
+    hands64 = _blur_norm(hands, 21, base) if hands is not None else torch.zeros_like(face64)
+    full64 = torch.clamp(1.0 - face64 + lips64 + hands64, 0.0, 1.0)
+    full_p, face_p, lips_p = (mask_pyramid(m, levels) for m in (full64, face64, lips64))
+    return [(full_p[lv][None], face_p[lv][None], lips_p[lv][None]) for lv in range(levels)]

@@ -3,12 +3,12 @@
 DDIM with eta = 0 written in (x, x0) form,
     x0 = predict(x, model_output);  prev = c_xt * x + c_x0 * x0,
 is the first-order case of DPM-Solver++(2M); the tables carry the
-second-order terms (cm, use2) for the multistep solvers of a later slice.
+second-order terms (cm, use2) of the multistep solver (`diffusion/dpm.py`).
 Tables are float32 numpy arrays; the step runs in torch, float32.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,15 +36,21 @@ def ddim_tables(timesteps, alpha_prod, alpha_prod_prev) -> SolverTables:
                         f32(s_p / s_t), f32(a_p - s_p * a_t / s_t), zeros, zeros.copy())
 
 
-def solver_tables_for(scheduler, num_inference_steps: int) -> SolverTables:
-    """SolverTables of a DDIMScheduler (the DDIM branch of the JAX
-    function; DPM-Solver++ waits for a later slice)."""
+def solver_tables_for(scheduler, num_inference_steps: int) -> Optional[SolverTables]:
+    """SolverTables of a scheduler the generic step covers, else None
+    (stochastic or clipped DDIM: the caller steps through the scheduler's
+    own `step_carry`)."""
     from mmgt_tpu_torch.diffusion.ddim import DDIMScheduler
+    from mmgt_tpu_torch.diffusion.dpm import DPMSolverPlusPlus2M
 
-    if not isinstance(scheduler, DDIMScheduler):
-        raise NotImplementedError(f"{type(scheduler).__name__} is not ported yet")
-    s = scheduler.init(num_inference_steps)
-    return ddim_tables(s.timesteps, s.alpha_prod, s.alpha_prod_prev)
+    if isinstance(scheduler, DPMSolverPlusPlus2M):
+        return SolverTables(*scheduler.init(num_inference_steps))
+    if isinstance(scheduler, DDIMScheduler):
+        if scheduler.eta != 0.0 or scheduler.clip_sample:
+            return None
+        s = scheduler.init(num_inference_steps)
+        return ddim_tables(s.timesteps, s.alpha_prod, s.alpha_prod_prev)
+    return None
 
 
 def _scalar(a, i) -> torch.Tensor:

@@ -7,9 +7,12 @@ Forward, all channel-last:
   latents      (B, F, h, w, 4)
   t            (B,) int
   context      (B, L_ctx, 768)    CLIP image embedding tokens
-  audio_tokens (B, F, 32, 768)    AudioProjModel output
-  pose_feat    (B, F, h, w, C0)   PoseGuider output (added after conv_in)
-  masks        3 levels x (full, face, lip), each (B, F, L_level)
+  audio_tokens (B, F, 32, 768)    AudioProjModel output, or None: the
+                                  audio modules are skipped
+  pose_feat    (B, F, h, w, C0)   PoseGuider output (added after conv_in),
+                                  or None
+  masks        3 levels x (full, face, lip), each (B, F, L_level), or None
+                                  without audio tokens
   banks_kv     16 (k, v) pairs, each (1, L_i, heads, d_i): the reference
                banks projected once per generation (`precompute_bank_kv`),
                the inference route
@@ -19,6 +22,10 @@ Forward, all channel-last:
                training route (instead of banks_kv)
   bank_gate    (B,) in {0, 1}, the rows that attend to the bank; by
                default the rows from n_uncond on (`unet3d.py:99-101`)
+
+`use_audio_module=False` / `use_motion_module=False` leave the audio /
+motion modules out: they are neither built (so `state_dict()` matches the
+JAX tree of the same flags) nor run (pose2img's single-frame UNet).
 
 `remat=True` checkpoints every ResnetBlock, SpatialTransformerRef and
 MotionModule (`torch.utils.checkpoint`, non-reentrant) when autograd
@@ -62,12 +69,14 @@ def skip_channels(chans: Sequence[int], layers_per_block: int) -> List[int]:
 class DenoisingUNet3D(nn.Module):
     def __init__(self, block_out_channels: Sequence[int] = (320, 640, 1280, 1280),
                  layers_per_block: int = 2, heads: int = 8, motion_max_len: int = 32,
-                 context_dim: int = 768, remat: bool = False):
+                 context_dim: int = 768, remat: bool = False,
+                 use_audio_module: bool = True, use_motion_module: bool = True):
         super().__init__()
         chans = list(block_out_channels)
         self.block_out_channels, self.layers_per_block = tuple(chans), layers_per_block
         self.heads = heads
         self.remat = remat
+        self.use_audio_module, self.use_motion_module = use_audio_module, use_motion_module
         n = len(chans)
         temb = chans[0] * 4
         self.conv_in = ConvNHWC(4, chans[0], 3, padding=1)
@@ -84,12 +93,14 @@ class DenoisingUNet3D(nn.Module):
                 blk.attentions = nn.ModuleList(
                     [SpatialTransformerRef(out_ch, heads, context_dim)
                      for _ in range(layers_per_block)])
-                blk.audio_modules = nn.ModuleList(
-                    [SpatialTransformerAudio(out_ch, heads, in_ch if li == 0 else out_ch)
-                     for li in range(layers_per_block)])
+                if use_audio_module:
+                    blk.audio_modules = nn.ModuleList(
+                        [SpatialTransformerAudio(out_ch, heads, in_ch if li == 0 else out_ch)
+                         for li in range(layers_per_block)])
                 blk.downsamplers = nn.ModuleList([Downsample(out_ch)])
-            blk.motion_modules = nn.ModuleList(
-                [MotionModule(out_ch, heads, motion_max_len) for _ in range(layers_per_block)])
+            if use_motion_module:
+                blk.motion_modules = nn.ModuleList(
+                    [MotionModule(out_ch, heads, motion_max_len) for _ in range(layers_per_block)])
             self.down_blocks.append(blk)
 
         self.mid_block = nn.Module()
@@ -97,8 +108,9 @@ class DenoisingUNet3D(nn.Module):
             [ResnetBlock(chans[-1], chans[-1], temb) for _ in range(2)])
         self.mid_block.attentions = nn.ModuleList(
             [SpatialTransformerRef(chans[-1], heads, context_dim)])
-        self.mid_block.motion_modules = nn.ModuleList(
-            [MotionModule(chans[-1], heads, motion_max_len)])
+        if use_motion_module:
+            self.mid_block.motion_modules = nn.ModuleList(
+                [MotionModule(chans[-1], heads, motion_max_len)])
 
         skips = skip_channels(chans, layers_per_block)
         rev = list(reversed(chans))
@@ -115,8 +127,10 @@ class DenoisingUNet3D(nn.Module):
                 blk.attentions = nn.ModuleList(
                     [SpatialTransformerRef(out_ch, heads, context_dim)
                      for _ in range(layers_per_block + 1)])
-            blk.motion_modules = nn.ModuleList(
-                [MotionModule(out_ch, heads, motion_max_len) for _ in range(layers_per_block + 1)])
+            if use_motion_module:
+                blk.motion_modules = nn.ModuleList(
+                    [MotionModule(out_ch, heads, motion_max_len)
+                     for _ in range(layers_per_block + 1)])
             if bi < n - 1:
                 blk.upsamplers = nn.ModuleList([Upsample(out_ch)])
             self.up_blocks.append(blk)
@@ -143,7 +157,7 @@ class DenoisingUNet3D(nn.Module):
             return checkpoint(mod, *args, use_reentrant=False)
         return mod(*args)
 
-    def forward(self, latents, t, context, audio_tokens, pose_feat, masks,
+    def forward(self, latents, t, context, audio_tokens=None, pose_feat=None, masks=None,
                 banks_kv: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
                 motion_scale: Sequence[float] = (1.0, 1.0, 1.0), n_uncond: int = 0,
                 banks: Optional[List[torch.Tensor]] = None, bank_gate=None):
@@ -157,7 +171,8 @@ class DenoisingUNet3D(nn.Module):
         temb = timestep_embedding(t, self.block_out_channels[0]).to(dtype)
         temb = self.time_embedding(temb).repeat_interleave(f, 0)
         context = context.repeat_interleave(f, 0)
-        audio_ctx = audio_tokens.reshape(b * f, *audio_tokens.shape[2:])
+        audio_ctx = (None if audio_tokens is None
+                     else audio_tokens.reshape(b * f, *audio_tokens.shape[2:]))
         bank_iter = iter(banks if banks is not None else banks_kv)
         run = self._run
 
@@ -170,16 +185,24 @@ class DenoisingUNet3D(nn.Module):
         def level_masks(level):
             return tuple(m.reshape(b * f, m.shape[-1]) for m in masks[level])
 
-        x = self.conv_in(_fold(latents)) + _fold(pose_feat)
+        def motion(blk, i, x):
+            if not self.use_motion_module:
+                return x
+            return run(blk.motion_modules[i], x, f)
+
+        x = self.conv_in(_fold(latents))
+        if pose_feat is not None:
+            x = x + _fold(pose_feat)
         res_stack = [x]
         for bi, blk in enumerate(self.down_blocks):
             for li, resnet in enumerate(blk.resnets):
                 x = run(resnet, x, temb)
                 if hasattr(blk, "attentions"):
                     x = attend(blk.attentions[li], x)
-                    x = blk.audio_modules[li](x, audio_ctx, level_masks(bi), motion_scale,
-                                              n_uncond * f)
-                x = run(blk.motion_modules[li], x, f)
+                    if self.use_audio_module and audio_ctx is not None:
+                        x = blk.audio_modules[li](x, audio_ctx, level_masks(bi), motion_scale,
+                                                  n_uncond * f)
+                x = motion(blk, li, x)
                 res_stack.append(x)
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0](x)
@@ -188,7 +211,7 @@ class DenoisingUNet3D(nn.Module):
         mid = self.mid_block
         x = run(mid.resnets[0], x, temb)
         x = attend(mid.attentions[0], x)
-        x = run(mid.motion_modules[0], x, f)
+        x = motion(mid, 0, x)
         x = run(mid.resnets[1], x, temb)
 
         for blk in self.up_blocks:
@@ -196,7 +219,7 @@ class DenoisingUNet3D(nn.Module):
                 x = run(resnet, torch.cat([x, res_stack.pop()], -1), temb)
                 if hasattr(blk, "attentions"):
                     x = attend(blk.attentions[li], x)
-                x = run(blk.motion_modules[li], x, f)
+                x = motion(blk, li, x)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
 

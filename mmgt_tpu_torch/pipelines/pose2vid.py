@@ -4,13 +4,16 @@
   * `_prepare`: VAE-encode the reference image, run the ReferenceNet once
     (batch 1, cond only), project its 16 banks through the denoiser's
     attn1 to_k/to_v once (`precompute_bank_kv`), run the pose guider,
-    project the audio, draw the initial noise;
+    project the audio, draw the initial noise (`pose_feat` given: the
+    guider forward is skipped, as lmks2vid's summed guiders need);
   * `_denoise_chunk`: per step, the context windows are gathered by index
     and denoised `window_microbatch` at a time in one UNet call with CFG
     folded into the batch ([uncond windows ; cond windows]; the uncond half
     attends self-only and sees zero audio/CLIP context); the overlap
     average is an `index_add_` scatter; then the CFG combine and the
-    solver step;
+    solver step: the table-driven `solver_step` for DDIM(eta = 0) and
+    DPM-Solver++(2M), the scheduler's own `step_carry` for stochastic or
+    clipped DDIM (`solver_tables_for` gives None);
   * `_decode`: VAE decode in fixed-size frame chunks.
 
 Frames come back as a device tensor (1, F, H, W, 3) in [0, 1] (or uint8);
@@ -26,7 +29,7 @@ import torch
 from torch import nn
 
 from mmgt_tpu_torch.device import resolve_device
-from mmgt_tpu_torch.diffusion.ddim import DDIMScheduler
+from mmgt_tpu_torch.diffusion.ddim import DDIMScheduler, DDIMState
 from mmgt_tpu_torch.diffusion.solver import (
     SolverTables,
     init_solver_carry,
@@ -42,7 +45,18 @@ from mmgt_tpu_torch.nn.layers import GroupNorm, LayerNorm
 from mmgt_tpu_torch.ops import launch_counts
 from mmgt_tpu_torch.pipelines.context import compute_context_schedule
 
-MODEL_NAMES = ("vae", "reference_unet", "denoising_unet", "pose_guider", "audio_proj")
+
+def materialize(models: Dict[str, nn.Module], device: torch.device,
+                dtype: torch.dtype) -> Dict[str, nn.Module]:
+    """Models built on the meta device, given storage on `device` in
+    `dtype` (channels_last on the card, where the convolutions run
+    cuDNN's NHWC kernels); their values are left for the caller to set."""
+    for m in models.values():
+        m.to_empty(device=device)
+        m.to(dtype)
+        if device.type == "cuda":
+            m.to(memory_format=torch.channels_last)
+    return models
 
 
 def _largest_divisor_at_most(n: int, cap: int) -> int:
@@ -67,8 +81,37 @@ def init_random_params(model: nn.Module, gen: torch.Generator, std: float = 0.02
     return model
 
 
+class ModelBundle:
+    """What a Stage-2 pipeline knows of its models: the dataclass fields
+    named in MODEL_NAMES, their device and dtype (the denoiser's), and
+    seeded random weights."""
+
+    MODEL_NAMES: Tuple[str, ...] = ()
+
+    def models(self) -> Dict[str, nn.Module]:
+        return {n: getattr(self, n) for n in self.MODEL_NAMES if getattr(self, n) is not None}
+
+    @property
+    def device(self) -> torch.device:
+        return self.denoising_unet.conv_in.weight.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.denoising_unet.conv_in.weight.dtype
+
+    @torch.no_grad()
+    def init_params(self, seed: int = 0, std: float = 0.02) -> None:
+        """Seeded random weights: norm scales 1, every other tensor
+        N(0, std) (zero-initialised branches are not left at zero)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        for model in self.models().values():
+            init_random_params(model, gen, std)
+
+
 @dataclasses.dataclass(eq=False)
-class Pose2VideoPipeline:
+class Pose2VideoPipeline(ModelBundle):
+    MODEL_NAMES = ("vae", "reference_unet", "denoising_unet", "pose_guider", "audio_proj")
+
     vae: AutoencoderKL
     reference_unet: ReferenceUNet2D
     denoising_unet: DenoisingUNet3D
@@ -91,38 +134,13 @@ class Pose2VideoPipeline:
               **kwargs) -> "Pose2VideoPipeline":
         """The full-width SD1.5 Stage-2 models on `device` (the card unless
         the caller asks for the CPU), weights from `init_params(seed)`."""
-        dev = resolve_device(device)
         with torch.device("meta"):
             models = dict(vae=AutoencoderKL(), reference_unet=ReferenceUNet2D(),
                           denoising_unet=DenoisingUNet3D(), pose_guider=PoseGuider(),
                           audio_proj=AudioProjModel())
-        for m in models.values():
-            m.to_empty(device=dev)
-            m.to(dtype)
-            if dev.type == "cuda":
-                m.to(memory_format=torch.channels_last)
-        pipe = cls(**models, **kwargs)
+        pipe = cls(**materialize(models, resolve_device(device), dtype), **kwargs)
         pipe.init_params(seed)
         return pipe
-
-    def models(self) -> Dict[str, nn.Module]:
-        return {n: getattr(self, n) for n in MODEL_NAMES if getattr(self, n) is not None}
-
-    @property
-    def device(self) -> torch.device:
-        return self.denoising_unet.conv_in.weight.device
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.denoising_unet.conv_in.weight.dtype
-
-    @torch.no_grad()
-    def init_params(self, seed: int = 0, std: float = 0.02) -> None:
-        """Seeded random weights: norm scales 1, every other tensor
-        N(0, std) (zero-initialised branches are not left at zero)."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        for model in self.models().values():
-            init_random_params(model, gen, std)
 
     def _bank_shapes(self, h8: int, w8: int):
         """(tokens, channels) of the 16 banks in the order the denoiser
@@ -153,18 +171,19 @@ class Pose2VideoPipeline:
     def __call__(self, ref_image, pose_video, clip_embed, masks, audio_embeds=None,
                  num_inference_steps: int = 30, guidance_scale: float = 3.5,
                  motion_scale: Sequence[float] = (1.0, 1.0, 1.0),
-                 generator: Optional[torch.Generator] = None, latents=None):
+                 generator: Optional[torch.Generator] = None, latents=None, pose_feat=None):
         """ref_image (1, H, W, 3) in [-1, 1]; pose_video (1, F, H, W, 3) in
         [0, 1]; clip_embed (1, 1, 768); masks: 3 levels x (full, face, lip),
         each (1, F, L_level); audio_embeds (1, F, 5, 12, 768) or None;
         latents: the initial noise (F, H/8, W/8, 4), else drawn from
-        `generator`. Returns (1, F, H, W, 3) frames on the pipeline's
-        device."""
+        `generator`; pose_feat: guider features that replace the
+        PoseGuider's (`_prepare`). Returns (1, F, H, W, 3) frames on the
+        pipeline's device."""
         dev = self.device
         move = lambda t: None if t is None else t.to(dev)
         masks = tuple(tuple(move(m) for m in lv) for lv in masks)
         f = pose_video.shape[1]
-        tables = solver_tables_for(self.scheduler, num_inference_steps)
+        tables = self.sampler_state(num_inference_steps)
         windows = torch.as_tensor(
             compute_context_schedule(num_inference_steps, f, self.context_size, 1,
                                      self.context_overlap), dtype=torch.long, device=dev)
@@ -173,14 +192,28 @@ class Pose2VideoPipeline:
         self._launches_at = launch_counts()
         t0 = time.perf_counter()
         cond, latents = self._prepare(move(ref_image), move(pose_video), move(clip_embed),
-                                      masks, move(audio_embeds), generator, latents)
+                                      masks, move(audio_embeds), generator, latents,
+                                      move(pose_feat))
         t0 = self._phase("prepare", t0)
-        latents, _ = self._denoise_chunk(latents, init_solver_carry(latents), cond, tables,
+        latents, _ = self._denoise_chunk(latents, self.init_aux(tables, latents), cond, tables,
                                          windows, guidance_scale, tuple(motion_scale))
         t0 = self._phase("denoise", t0)
         frames = self._decode(latents)
         self._phase("decode", t0)
         return frames
+
+    def sampler_state(self, num_inference_steps: int) -> Union[SolverTables, DDIMState]:
+        """The generic step's tables, or the scheduler's own state where
+        the generic step does not cover it (stochastic or clipped DDIM)."""
+        tables = solver_tables_for(self.scheduler, num_inference_steps)
+        return self.scheduler.init(num_inference_steps) if tables is None else tables
+
+    def init_aux(self, state, latents):
+        """The sampler's carry: the x0 history of the generic step, or the
+        scheduler's own."""
+        if isinstance(state, SolverTables):
+            return init_solver_carry(latents)
+        return self.scheduler.init_carry(latents)
 
     def _phase(self, name: str, t0: float) -> float:
         if self.profile_phases:
@@ -193,9 +226,11 @@ class Pose2VideoPipeline:
 
     @torch.no_grad()
     def _prepare(self, ref_image, pose_video, clip_embed, masks, audio_embeds=None,
-                 generator: Optional[torch.Generator] = None, latents=None):
+                 generator: Optional[torch.Generator] = None, latents=None, pose_feat=None):
         """Reference branch + conditioning features + initial noise (drawn
-        from `generator` unless `latents` is given)."""
+        from `generator` unless `latents` is given). `pose_feat` (1, F, h,
+        w, C0) replaces the PoseGuider's features, whose forward is then
+        skipped; `pose_video` then gives only the frame count."""
         dtype, dev = self.dtype, self.device
         f = pose_video.shape[1]
         w = self._num_windows(f)
@@ -204,7 +239,8 @@ class Pose2VideoPipeline:
         _, banks = self.reference_unet(
             ref_latent, torch.zeros((1,), dtype=torch.long, device=dev), clip_embed.to(dtype))
         banks_kv = precompute_bank_kv(self.denoising_unet, banks)
-        pose_feat = self.pose_guider(pose_video.to(dtype))
+        if pose_feat is None:
+            pose_feat = self.pose_guider(pose_video.to(dtype))
         if audio_embeds is not None:
             audio_tokens = self.audio_proj(audio_embeds.to(dtype))
         else:
@@ -229,9 +265,11 @@ class Pose2VideoPipeline:
         return cond, latents
 
     @torch.no_grad()
-    def _denoise_chunk(self, latents, aux, cond, tables: SolverTables, windows,
-                       guidance_scale: float, motion_scale: Tuple[float, float, float]):
-        """Run windows.shape[0] steps with tables rows 0.. of as many steps."""
+    def _denoise_chunk(self, latents, aux, cond, tables: Union[SolverTables, DDIMState],
+                       windows, guidance_scale: float,
+                       motion_scale: Tuple[float, float, float]):
+        """Run windows.shape[0] steps with rows 0.. of `tables` (from
+        `sampler_state`) and the carry `aux` (from `init_aux`)."""
         dtype = self.dtype
         f, h8, w8 = latents.shape[:3]
         windows = torch.as_tensor(windows, dtype=torch.long, device=latents.device)
@@ -274,8 +312,11 @@ class Pose2VideoPipeline:
             u = zeros.clone().index_add_(0, flat, uncond) / count
             c = zeros.index_add_(0, flat, cond_p) / count
             noise_pred = u + guidance_scale * (c - u)
-            latents, aux = solver_step(tables, noise_pred, s, latents, aux,
-                                       self.scheduler.prediction_type)
+            if isinstance(tables, SolverTables):
+                latents, aux = solver_step(tables, noise_pred, s, latents, aux,
+                                           self.scheduler.prediction_type)
+            else:
+                latents, aux = self.scheduler.step_carry(tables, noise_pred, s, latents, aux)
         return latents, aux
 
     @torch.no_grad()

@@ -1,10 +1,16 @@
-"""Carry `mmgt_tpu` (flax) parameters into the port's modules.
+"""Checkpoints and flax parameters into the port's modules.
 
-The port's modules keep the reference's torch state-dict key names. For
-each port key, `load_jax_params` finds the flax leaf whose name the
-mapper translates to that key, using this module's copies of
-`mmgt_tpu.utils.convert.map_unet3d`, `map_unet2d`, `map_vae`,
-`map_pose_guider`, `map_audio_proj` (`PIPELINE_MAPPERS`) and
+The port's modules keep the reference's torch state-dict key names, so a
+reference checkpoint loads by its own keys (`load_checkpoint`); the
+readers are the port's copies of `mmgt_tpu/utils/convert.py`'s
+`load_torch_state_dict`, `fold_weight_norm`, `split_packed_qkv`,
+`load_smga_state_dict` and `split_net_checkpoint`, plus a `.safetensors`
+reader of its own (`read_safetensors`).
+
+`load_jax_params` carries a flax tree in: for each port key it finds the
+flax leaf whose name the mapper translates to that key, using this
+module's copies of `mmgt_tpu.utils.convert.map_unet3d`, `map_unet2d`,
+`map_vae`, `map_pose_guider`, `map_audio_proj` (`PIPELINE_MAPPERS`) and
 `map_clip_vision`, `map_wav2vec2`, `map_wavlm`, `map_smga`
 (`ENCODER_MAPPERS`), and inverts the converter's layout change
 (`to_flax_tensor`): Dense (in, out) -> (out, in), Conv (kh, kw, in, out)
@@ -14,8 +20,12 @@ raises.
 """
 from __future__ import annotations
 
+import json
+import os
+import pickle
 import re
-from typing import Any, Callable, Dict, Iterator, Mapping, Tuple
+import struct
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -323,3 +333,192 @@ def load_jax_params(module: nn.Module, flax_tree: Mapping,
             flax_key, arr = by_key[key]
             t.copy_(torch.from_numpy(from_flax_tensor(flax_key, arr, t.shape)))
     return module
+
+
+# --------------------------------------------------------------- checkpoints
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32, "I16": torch.int16,
+    "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool,
+}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A `.safetensors` file as CPU tensors: an 8-byte little-endian header
+    length, a JSON header {name: {"dtype", "shape", "data_offsets"}} (and
+    an optional "__metadata__"), then the tensors' raw little-endian bytes,
+    each at its offsets from the end of the header (read as they are: the
+    host is little-endian). The tensors share one buffer of the file's
+    data."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        buf = bytearray(os.fstat(f.fileno()).st_size - 8 - n)
+        if f.readinto(buf) != len(buf):
+            raise ValueError(f"{path}: short read")
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _SAFETENSORS_DTYPES[info["dtype"]]
+        shape = [int(d) for d in info["shape"]]
+        start, end = info["data_offsets"]
+        numel = int(np.prod(shape))
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        if not 0 <= start <= end <= len(buf) or end - start != numel * itemsize:
+            raise ValueError(f"{path}: {name} has offsets {start}..{end} for {shape} "
+                             f"{info['dtype']} in {len(buf)} data bytes")
+        if numel == 0:
+            out[name] = torch.empty(shape, dtype=dtype)
+            continue
+        out[name] = torch.frombuffer(buf, dtype=dtype, count=numel, offset=start).reshape(shape)
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def fold_weight_norm(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Torch weight-norm parametrizations as plain weights: `X.weight_g` +
+    `X.weight_v` (old API) or `X.parametrizations.weight.original0/1`
+    (new API) -> `X.weight` = g * v / ||v||, the norm over every axis where
+    g has size 1, in float64 numpy as the JAX package computes it, rounded
+    to v's dtype."""
+    out = dict(sd)
+    pairs = []
+    for k in sd:
+        m = re.match(r"(.*)\.weight_g$", k)
+        if m and f"{m.group(1)}.weight_v" in sd:
+            pairs.append((m.group(1), k, f"{m.group(1)}.weight_v"))
+        m = re.match(r"(.*)\.parametrizations\.weight\.original0$", k)
+        if m:
+            v_key = f"{m.group(1)}.parametrizations.weight.original1"
+            if v_key in sd:
+                pairs.append((m.group(1), k, v_key))
+    for base, g_key, v_key in pairs:
+        g = _numpy(sd[g_key]).astype(np.float32)
+        v = _numpy(sd[v_key]).astype(np.float32)
+        axes = tuple(i for i, s in enumerate(g.shape) if s == 1) or tuple(range(v.ndim - 1))
+        norm = np.sqrt((v.astype(np.float64) ** 2).sum(axis=axes, keepdims=True))
+        w = g * (v / norm)
+        dtype = sd[v_key].dtype
+        out[base + ".weight"] = (torch.from_numpy(w).to(dtype) if dtype == torch.bfloat16
+                                 else torch.from_numpy(w.astype(_numpy(sd[v_key]).dtype)))
+        del out[g_key], out[v_key]
+    return out
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A `.pth` / `.pt` / `.ckpt` / `.bin` / `.safetensors` file as a flat
+    dict of CPU tensors in the file's own dtypes. Torch files are read
+    with `weights_only=True` first, and again unrestricted when that
+    refuses them (the microsoft WavLM release pickles its argparse cfg;
+    only load files you trust); a "state_dict" or "model" wrapper is
+    unwrapped, non-tensor entries dropped and weight norms folded."""
+    if str(path).endswith(".safetensors"):
+        return read_safetensors(path)
+    try:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        sd = torch.load(path, map_location="cpu", weights_only=False)
+    for wrapper in ("state_dict", "model"):
+        if isinstance(sd, dict) and isinstance(sd.get(wrapper), dict):
+            sd = sd[wrapper]
+    return fold_weight_norm({k: v for k, v in sd.items() if isinstance(v, torch.Tensor)})
+
+
+def split_packed_qkv(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """nn.MultiheadAttention's packed `in_proj_weight` / `in_proj_bias` as
+    `q_proj` / `k_proj` / `v_proj` keys (rows [0:d], [d:2d], [2d:3d])."""
+    out = dict(sd)
+    for k in list(sd):
+        m = re.match(r"(.*)\.in_proj_(weight|bias)$", k)
+        if not m:
+            continue
+        base, kind = m.groups()
+        d = sd[k].shape[0] // 3
+        for i, name in enumerate(("q_proj", "k_proj", "v_proj")):
+            out[f"{base}.{name}.{kind}"] = sd[k][i * d:(i + 1) * d]
+        del out[k]
+    return out
+
+
+def load_smga_state_dict(path: str, ema: bool = True) -> Dict[str, torch.Tensor]:
+    """A reference Stage-1 checkpoint (a dict of ema_state_dict /
+    model_state_dict / optimizer_state_dict / normalizer, read
+    unrestricted) as the GestureDecoder's state dict: the EMA weights
+    unless `ema` is False or absent, a leading `module.` stripped, the
+    packed q/k/v split."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and ("ema_state_dict" in ckpt or "model_state_dict" in ckpt):
+        ckpt = ckpt["ema_state_dict" if ema and "ema_state_dict" in ckpt else "model_state_dict"]
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v
+          for k, v in ckpt.items() if isinstance(v, torch.Tensor)}
+    return split_packed_qkv(sd)
+
+
+def split_net_checkpoint(sd: Dict[str, torch.Tensor]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The reference's trained Stage-2 `net-*.pth`, the state dict of
+    Net(reference_unet, denoising_unet, pose_guider, audioproj), split by
+    the wrapper's attribute prefixes into per-module dicts (unprefixed
+    keys are dropped)."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {
+        "reference_unet": {}, "denoising_unet": {}, "pose_guider": {}, "audioproj": {}}
+    for k, v in sd.items():
+        for prefix, d in out.items():
+            if k.startswith(prefix + "."):
+                d[k[len(prefix) + 1:]] = v
+                break
+    return out
+
+
+def _as_shape(key: str, src: torch.Tensor, shape: torch.Size) -> torch.Tensor:
+    """A checkpoint tensor in the port's shape: a 1x1 convolution's
+    (O, I, 1, 1) feeds a Linear's (O, I) (SD1.5's proj_in / proj_out), and
+    any tensor of the same size is reshaped (() <-> (1,)); else raise."""
+    if src.shape == shape:
+        return src
+    if src.ndim == 4 and src.shape[2:] == (1, 1) and src.shape[:2] == shape:
+        return src[:, :, 0, 0]
+    if src.numel() == int(np.prod(shape)):
+        return src.reshape(shape)
+    raise ValueError(f"{key}: checkpoint shape {tuple(src.shape)} does not fit {tuple(shape)}")
+
+
+def load_checkpoint(module: nn.Module, state_dicts: Sequence[Mapping[str, torch.Tensor]],
+                    missing_ok: Sequence[str] = (), value_dtype=None) -> Dict[str, List[str]]:
+    """Fill `module` in place from checkpoint state dicts by the module's
+    own keys (the reference's; `mmgt_tpu.utils.convert.convert`'s rules):
+
+    * later dicts win;
+    * a module key absent from every dict raises KeyError unless it
+      matches one of the `missing_ok` regexes; such keys keep their
+      current values and are listed in report["missing"];
+    * checkpoint keys the module does not take are listed in
+      report["unexpected"];
+    * each tensor is cast to the module's dtype on the module's device,
+      through `value_dtype` first when given (an f32 module holding the
+      pipeline dtype's values, as the JAX package's bf16 parameters
+      computed in f32).
+
+    Nothing is written unless every key is covered. Where the port's keys
+    differ from a published file's, the caller adapts the dict:
+    `split_net_checkpoint` strips the Net wrapper's prefixes,
+    `split_packed_qkv` splits SMGA's packed q/k/v, `fold_weight_norm`
+    folds wav2vec2's and WavLM's positional-conv weight norm."""
+    merged: Dict[str, torch.Tensor] = {}
+    for sd in state_dicts:
+        merged.update(sd)
+    ok = [re.compile(p) for p in missing_ok]
+    target = module.state_dict()
+    missing = [k for k in target if k not in merged and any(r.search(k) for r in ok)]
+    refused = [k for k in target if k not in merged and k not in missing]
+    if refused:
+        raise KeyError(f"{len(refused)} params missing from checkpoint and not covered by "
+                       f"missing_ok, e.g. {refused[:5]}")
+    srcs = {k: _as_shape(k, merged[k], t.shape) for k, t in target.items() if k in merged}
+    with torch.no_grad():
+        for k, src in srcs.items():
+            target[k].copy_(src if value_dtype is None else src.to(value_dtype))
+    return {"missing": missing, "unexpected": [k for k in merged if k not in target]}

@@ -346,13 +346,24 @@ def test_audio2vid_call_matches_jax(tmp_path):
 
 
 def test_cli_parses_the_reference_arguments(tmp_path):
-    """The reference CLI's arguments, less --weights_dir and --solver; a
-    config naming weights raises (the port loads no checkpoints yet)."""
+    """The reference CLI's arguments, --weights_dir and --solver included;
+    a weights directory named by the config or the flag reaches the
+    config (`build` then loads it), and --solver dpm++2m gives Stage 2
+    DPM-Solver++(2M)."""
+    from mmgt_tpu_torch.diffusion import DPMSolverPlusPlus2M, make_scheduler
+
     args = cli.parse_args(["--ref_image", "a.png", "--audio", "a.wav", "--steps", "3", "-W",
-                           "256", "-L", "16", "--use_motion_selection", "--device", "cpu"])
-    assert (args.steps, args.width, args.length, args.use_motion_selection, args.device) == (
-        3, 256, 16, True, "cpu")
+                           "256", "-L", "16", "--use_motion_selection", "--device", "cpu",
+                           "--solver", "dpm++2m", "--weights_dir", "w2"])
+    assert (args.steps, args.width, args.length, args.use_motion_selection, args.device,
+            args.solver, args.weights_dir) == (3, 256, 16, True, "cpu", "dpm++2m", "w2")
+    c = cli.config_from_args(args)
+    assert (c.num_inference_steps, c.width, c.video_length, c.weights_dir) == (3, 256, 16, "w2")
+    assert isinstance(make_scheduler(c.scheduler), DPMSolverPlusPlus2M)
     cfg = tmp_path / "cfg.json"
     cfg.write_text('{"weights_dir": "w"}')
-    with pytest.raises(NotImplementedError):
-        cli.main(["--ref_image", "a.png", "--audio", "a.wav", "--config", str(cfg)])
+    c = cli.config_from_args(cli.parse_args(["--ref_image", "a.png", "--audio", "a.wav",
+                                             "--config", str(cfg)]))
+    assert c.weights_dir == "w" and c.scheduler.solver == "ddim"
+    with pytest.raises(SystemExit):
+        cli.parse_args(["--ref_image", "a.png", "--audio", "a.wav", "--solver", "unipc"])

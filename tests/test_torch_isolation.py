@@ -1,7 +1,9 @@
 """mmgt_tpu_torch stands alone: importing it and every module in it pulls
-in no jax, flax or mmgt_tpu (checked in a subprocess, since this test
-process has imported jax already), and its entry points refuse to run
-without a card unless the caller asks for the CPU."""
+in no jax, flax, safetensors or mmgt_tpu (checked in a subprocess, since
+this test process has imported jax already), `chip_smoke.py` imports none
+of them anywhere, and the port's entry points refuse to run without a
+card unless the caller asks for the CPU."""
+import ast
 import os
 import subprocess
 import sys
@@ -21,7 +23,7 @@ names = [m.name for m in pkgutil.walk_packages(mmgt_tpu_torch.__path__, "mmgt_tp
 for n in names:
     importlib.import_module(n)
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "flax", "mmgt_tpu"))
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "safetensors", "mmgt_tpu"))
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
@@ -32,7 +34,10 @@ new = {"mmgt_tpu_torch.config", "mmgt_tpu_torch.data.dsp", "mmgt_tpu_torch.data.
        "mmgt_tpu_torch.models.smga", "mmgt_tpu_torch.ops.image",
        "mmgt_tpu_torch.diffusion.gesture", "mmgt_tpu_torch.training.stage1",
        "mmgt_tpu_torch.pipelines.audio2vid", "mmgt_tpu_torch.utils.media",
-       "mmgt_tpu_torch.scripts.audio2vid"}
+       "mmgt_tpu_torch.scripts.audio2vid", "mmgt_tpu_torch.diffusion.dpm",
+       "mmgt_tpu_torch.pipelines.pose2img", "mmgt_tpu_torch.pipelines.lmks2vid",
+       "mmgt_tpu_torch.pipelines.interp", "mmgt_tpu_torch.utils.weights",
+       "mmgt_tpu_torch.scripts.pose2vid"}
 assert new <= set(names), sorted(new - set(names))
 """
 
@@ -41,6 +46,21 @@ def test_port_imports_no_jax_flax_or_mmgt_tpu():
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_chip_smoke_imports_no_jax_flax_safetensors_or_mmgt_tpu():
+    """Every import statement of chip_smoke.py, inside functions too."""
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            mods.add(node.module or "")
+    assert "mmgt_tpu_torch" in {m.split(".")[0] for m in mods}
+    bad = sorted(m for m in mods
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "safetensors", "mmgt_tpu"))
+    assert not bad, bad
 
 
 def test_build_without_device_and_without_cuda_raises(monkeypatch):
@@ -69,3 +89,16 @@ def test_audio2vid_build_without_device_and_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Audio2VideoPipeline.build()
+
+
+@pytest.mark.parametrize("entry", ["pose2img", "lmks2vid", "load_all_weights"])
+def test_new_entry_points_without_cuda_raise(monkeypatch, entry):
+    from mmgt_tpu_torch.pipelines.lmks2vid import Lmks2VideoPipeline
+    from mmgt_tpu_torch.pipelines.pose2img import Pose2ImagePipeline
+    from mmgt_tpu_torch.utils.weights import load_all_weights
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = {"pose2img": Pose2ImagePipeline.build, "lmks2vid": Lmks2VideoPipeline.build,
+            "load_all_weights": lambda: load_all_weights("absent", None, None)}[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()

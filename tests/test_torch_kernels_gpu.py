@@ -189,6 +189,37 @@ def test_ln_projections_kernel(gen, n_w):
         _check(got, want)
 
 
+@pytest.mark.parametrize("b,seq,d", [(1, 4096, 40), (2, 1024, 80), (1, 256, 160)])
+def test_flash_attention_kernel_raw_bank_single_frame(gen, b, seq, d):
+    """Pose2img's raw-bank route at f = 1: q (2b, L, 8, d) against its own
+    keys concatenated with the bank's (2L keys), tiled [bk ; bk], with the
+    CFG-uncond half (n_uncond = b) gated to its own L keys by kv_lens."""
+    h = 8
+    q, ks, vs = (_bf(gen, 2 * b, seq, h, d) for _ in range(3))
+    kb, vb = _bf(gen, b, seq, h, d), _bf(gen, b, seq, h, d)
+    k = torch.cat([ks, torch.cat([kb, kb], 0)], 1)
+    v = torch.cat([vs, torch.cat([vb, vb], 0)], 1)
+    gate = (torch.arange(2 * b, device="cuda") >= b).to(torch.int32)
+    kl = seq + gate * seq
+    got = A.flash_attention(q, k, v, kl)
+    _check(got, A.attention_plain(q, k, v, kl))
+    # the uncond rows see their own keys only
+    _check(got[:b], A.attention_plain(q[:b], ks[:b], vs[:b]))
+
+
+@pytest.mark.parametrize("outs,bias", [([320, 320, 320], False), ([2560], True)])
+def test_ln_projections_kernel_pose2img_rows(gen, outs, bias):
+    """Pose2img's level-0 batch: x (2, 4096, 320), 8192 rows (the CFG
+    pair of one single-frame example), q/k/v and GEGLU."""
+    c = 320
+    x = _bf(gen, 2, 4096, c)
+    g, b = 1 + _bf(gen, c, scale=0.1), _bf(gen, c, scale=0.1)
+    ws = [_bf(gen, n, c, scale=1 / math.sqrt(c)) for n in outs]
+    bs = [_bf(gen, n) if bias else None for n in outs]
+    for got, want in zip(L.ln_projections(x, g, b, ws, bs), L.ln_projections_plain(x, g, b, ws, bs)):
+        _check(got, want)
+
+
 # M against the 128- and 64-row stripes; K = 320 (128-row stripes), 640 and
 # 1280 (64-row); 1-3 weights with N off the 160-column tile (96, 200), the
 # GEGLU (2560) and the widest (10240) widths; with and without bias
