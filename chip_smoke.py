@@ -23,7 +23,11 @@ Phases, in order; any failure exits non-zero:
      largest output), K3 at the level-0 q/k/v,
      level-0 GEGLU and level-2 audio-q shapes, K4 at levels 0, 1 and 3, K5
      at the level-1 bank-concat and level-0 audio self-attention shapes;
-     two K5 calls on the same inputs must be bitwise equal;
+     K1 (no LSE), K2 and K3 at pose2img's level 0 (2 rows of 4096 tokens),
+     K1 with LSE, K2, K3 and K5 at the image pretrain's (4 rows of 1024:
+     the denoiser's self keys + bank with kv_lens, the ReferenceNet's own
+     self-attention); two K5 calls on the same inputs must be bitwise
+     equal;
   3. gradients: the autograd Functions of K1-K4 on the card against
      autograd through their plain versions, at small shapes;
   4. main: Pose2VideoPipeline at full SD1.5 width, 512x512, 16 frames (two
@@ -77,7 +81,9 @@ Phases, in order; any failure exits non-zero:
      random-filled; the bytes and the write and load seconds; wav2vec2's
      embeddings with bf16 values against fp16 values; then the pose2vid
      CLI's `run` on the loaded pipeline (16 frames, STEPS steps): finite
-     frames, K1-K4 launched.
+     frames, K1-K4 launched; then the video and image training CLIs'
+     `build` with the directory: their models equal to the loaded ones,
+     a CLIP model returned.
      Phases 8, 10, 11 and 12's CLI run record their launches and replay
      each signature not replayed before, as 6 does;
  13. train: Stage2Trainer at full width, 512x512, 12 frames, batch 1,
@@ -86,18 +92,43 @@ Phases, in order; any failure exits non-zero:
      bitwise unchanged, K5 launched EXPECTED_K5_PER_STEP times in every
      step and K1-K4 at least once (the counts include the checkpointed
      recompute), the seconds of the steps after the first and the peak
-     memory;
+     memory; then train_cli: 2 more steps through the video CLI's `run`
+     (`scripts/train_stage2.py`) on a synthetic TalkingVideoDataset, ending
+     in its checkpoint, every launch signature (K5's included) replayed;
  14. train_small: a tiny trainer (the small pipeline's sizes, no remat) with
      one set of weights and draws, three ways as in 5; the loss and the
      flattened trainable gradients against CPU f32, the card's mean error
-     within SMALL_ERR_FACTOR x the plain bf16 error.
+     within SMALL_ERR_FACTOR x the plain bf16 error;
+ 15. train_image: the Stage-2 image pretrain (`Stage2ImageTrainer`, the
+     ReferenceNet trained through the bank) at full width through the
+     image CLI's `run` (`scripts/train_stage2_image.py`): 256^2, batch 4,
+     TRAIN_IMAGE_STEPS steps on a synthetic HumanDanceDataset, a seeded
+     full-width CLIP: finite losses, every f32 master moved (the
+     ReferenceNet's among them), every frozen tensor (the VAE, the
+     ReferenceNet's up_blocks.3) bitwise unchanged, K1, K2, K3 and K5
+     launched in every step (K5 EXPECTED_K5_PER_IMAGE_STEP times) and K4
+     not; seconds per step, peak memory, launches per step; every launch
+     signature replayed; the run's last checkpoint restored into a fresh
+     state (every tensor bitwise equal) and one more step from it;
+ 16. train_image_small: a tiny image trainer three ways as in 14, the
+     ReferenceNet's gradients compared on their own too;
+ 17. train_a2p: the SMGA trainer at the reference's widths, f32, batch
+     A2P_BATCH, A2P_STEPS steps through the Stage-1 CLI's `run`
+     (`scripts/train_a2p.py`) on a synthetic GestureDataset: finite
+     losses, the EMA equal to d ema + (1 - d) params after each step, no
+     kernel launched (its attention is 80 tokens, plain math); then one
+     more step on the card against the same step on the CPU in f32
+     (A2P_LOSS_TOL, A2P_GRAD_TOL).
+Launch signatures are recorded by wrapping each kernel module's launch
+function, K5's `_launch_bwd` included; a K5 signature is replayed with
+o and lse from the plain forward on its seeded inputs, at 4 bf16 ulps.
 Then the `kernels` JSON line, the card line, and the result line.
 
     python3 chip_smoke.py profile    # build, then profile a denoise step
-                                     # and a train step
+                                     # and the train steps
 
-profiles one full-width denoise step and one full-width train step
-instead (device time by kernel family, idle share, and the GroupNorm
+profiles one full-width denoise step, one full-width train step, one
+image-pretrain step and one SMGA step instead (device time by kernel family, idle share, and the GroupNorm
 calls of each step with K2's plans and their bytes bound) and prints no
 `kernels` line.
 This script imports nothing of JAX or of the JAX package.
@@ -140,6 +171,21 @@ POSE2IMG_STEPS = 20  # Pose2ImagePipeline's default
 # upstream of it is trained), plus the 6 self-attentions of the trained
 # audio blocks
 EXPECTED_K5_PER_STEP = 21
+# the image pretrain (reference config/train/stage1.yaml): 256^2, batch 4
+TRAIN_IMAGE_STEPS = 3
+TRAIN_IMAGE_SIZE = 256
+IMAGE_TRAIN_KERNELS = ("flash_attention", "group_norm", "ln_projections", "flash_attention_bwd")
+# the denoiser's 16 self-attentions (all trained) and 15 of the ReferenceNet's
+# 16 (its up_blocks.3.attentions.2 only feeds the discarded output sample)
+EXPECTED_K5_PER_IMAGE_STEP = 31
+# SMGA training at the reference's batch; the card-vs-CPU step on fewer rows
+A2P_BATCH = 128
+A2P_STEPS = 3
+A2P_CPU_ROWS = 32
+# f32 on both sides, TF32 off; sums in another order through 8 layers and
+# their backward: the loss relative, the gradients against the largest |g|
+A2P_LOSS_TOL = 1e-5
+A2P_GRAD_TOL = 1e-4
 
 
 def log(*a):
@@ -221,6 +267,15 @@ def check_k1(torch, A):
         ("L2 bank", 2, 256, 256, 8, 160, True, [256, 512], True, "L2 bank (d = 160)"),
         ("L3 bank", 2, 64, 64, 8, 160, True, [64, 128], False, None),
         ("VAE mid d=512", 1, 4096, 4096, 1, 512, False, None, False, "_flash_attention"),
+        # pose2img: raw banks concatenated at f = 1, the CFG-uncond row gated off
+        ("pose2img concat bank, no lse", 2, 4096, 8192, 8, 40, False, [4096, 8192], False,
+         "pose2img L0 concat, no lse"),
+        # the image trainer at 256^2, batch 4: the denoiser's level-0 self keys
+        # and per-example bank (one row dropped), and the ReferenceNet's own
+        ("train_image L0 concat + lse", 4, 1024, 2048, 8, 40, False, [1024, 2048, 2048, 2048],
+         True, "train_image L0 concat + lse"),
+        ("train_image ReferenceNet self + lse", 4, 1024, 1024, 8, 40, False, None, True,
+         "train_image ReferenceNet self + lse"),
     ]
     tol_lse = 1e-3
     rec, rows = None, {}
@@ -302,6 +357,9 @@ def check_k2(torch, N):
         # a plan that once asked for 233,488 bytes of shared memory (k = 16)
         ("768 groups of 1, f32 (formerly over the limit)", (1, 64, 768), 768, None, f32,
          "(1, 64, 768) f32, 768 groups"),
+        ("pose2img L0 (2 rows)", (2, 4096, 320), 32, "silu", bf, "pose2img L0 (2, 4096, 320)"),
+        ("train_image L0 (4 rows)", (4, 1024, 320), 32, "silu", bf,
+         "train_image L0 (4, 1024, 320)"),
     ]:
         c = shape[-1]
         plan = N.gn_plan(*shape, groups, dtype)
@@ -358,6 +416,8 @@ def check_k3(torch, L):
         ("L0 q/k/v (48 rows)", 48, 4096, 320, [320, 320, 320], False),
         ("L0 GEGLU", 48, 4096, 320, [2560], True),
         ("L2 3 audio q", 24, 256, 1280, [1280, 1280, 1280], False),
+        ("pose2img L0 q/k/v (2 rows)", 2, 4096, 320, [320, 320, 320], False),
+        ("train_image L0 q/k/v (4 rows)", 4, 1024, 320, [320, 320, 320], False),
     ]:
         x = torch.randn(nrow, l, c, generator=g, device=dev).to(torch.bfloat16)
         gam = (1 + 0.1 * torch.randn(c, generator=g, device=dev)).to(torch.bfloat16)
@@ -446,6 +506,8 @@ def check_k5(torch, A):
         ("L2 bank concat", 2, 256, 512, 8, 160, [256, 512], False),
         ("mid bank concat", 2, 64, 128, 8, 160, [64, 128], False),
         ("L0 audio self-attention", 2, 4096, 4096, 8, 40, None, True),
+        ("train_image L0 concat", 4, 1024, 2048, 8, 40, [1024, 2048, 2048, 2048], True),
+        ("train_image ReferenceNet self-attention", 4, 1024, 1024, 8, 40, None, True),
     ]:
         q, k, v, do = rnd(b, sq, h, d), rnd(b, skv, h, d), rnd(b, skv, h, d), rnd(b, sq, h, d)
         kl = torch.tensor(lens, dtype=torch.int32, device=dev) if lens else None
@@ -801,12 +863,16 @@ def run_a2v(torch, ops, kernel_mods, tmp: str):
 
 
 class LaunchRecorder:
-    """Wraps each kernel module's `_launch` (the one place a kernel wrapper
-    launches) for the duration of a `with` block and records the layout of
-    every launch: its signature (per tensor argument the shape, strides and
-    dtype, every other argument as it is) with a count of calls, and K1's
-    kv_lens values of the first call of each signature. It adds no device
-    work to the calls it records."""
+    """Wraps each kernel module's launch function (`_launch`, the one place
+    a kernel wrapper launches; K5's `_launch_bwd`) for the duration of a
+    `with` block and records the layout of every launch: its signature
+    (per tensor argument the shape, strides and dtype, every other argument
+    as it is) with a count of calls, and the kv_lens values (K1's, K5's) of
+    the first call of each signature. It adds no device work to the calls
+    it records."""
+
+    LAUNCH_FN = {"flash_attention_bwd": "_launch_bwd"}
+    LENS_ARG = {"flash_attention": 3, "flash_attention_bwd": 6}
 
     def __init__(self, torch, mods):
         self.torch, self.mods, self.calls = torch, mods, {}
@@ -819,21 +885,22 @@ class LaunchRecorder:
         return ("V", a)
 
     def __enter__(self):
-        self.saved = {name: mod._launch for name, mod in self.mods.items()}
+        self.saved = {name: getattr(mod, self.LAUNCH_FN.get(name, "_launch"))
+                      for name, mod in self.mods.items()}
         for name, mod in self.mods.items():
             def rec(*args, _name=name, _plain=self.saved[name]):
                 key = (_name, tuple(self.desc(a) for a in args))
                 if key not in self.calls:
-                    lens = args[3] if _name == "flash_attention" else None
+                    lens = args[self.LENS_ARG[_name]] if _name in self.LENS_ARG else None
                     self.calls[key] = [0, None if lens is None else lens.clone()]
                 self.calls[key][0] += 1
                 return _plain(*args)
-            mod._launch = rec
+            setattr(mod, self.LAUNCH_FN.get(name, "_launch"), rec)
         return self
 
     def __exit__(self, *exc):
         for name, mod in self.mods.items():
-            mod._launch = self.saved[name]
+            setattr(mod, self.LAUNCH_FN.get(name, "_launch"), self.saved[name])
 
 
 def check_a2v_calls(torch, calls, A, N, L, M, tag="a2v", checked=None):
@@ -960,6 +1027,38 @@ def replay_call(torch, kern, sig, lens, make, picks, tol_for, A, N, L, M, tag):
         what = f"x {tuple(x.shape)}, W {[tuple(w_.shape) for w_ in ws]}" + (
             ", bias" if bs[0] is not None else "")
         inputs = (x, gam, bet, *ws, *bs)
+    elif kern == "flash_attention_bwd":
+        q, k, v, o, do, lse = map(make, sig[:6])
+        scale = sig[7][1]
+        kl = None if lens is None else lens.to(dev)
+        # o and lse from the plain forward on these inputs, row by row (a
+        # consistent (o, lse) pair is what the backward is defined on)
+        for i in range(q.shape[0]):
+            r = slice(i, i + 1)
+            o_r, lse_r = A.attention_plain(q[r], k[r], v[r], None if kl is None else kl[r],
+                                           scale=scale, return_lse=True)
+            o[r].copy_(o_r)
+            lse[r].copy_(lse_r)
+            del o_r, lse_r
+        fn = lambda: A.flash_attention_bwd(q, k, v, o, do, lse, kl, scale)
+        got = fn()
+        err, tol = 0.0, 0.0
+        for i in picks(q.shape[0]):
+            r = slice(i, i + 1)
+            want = A.attention_bwd_plain(q[r], k[r], v[r], o[r], do[r], lse[r],
+                                         None if kl is None else kl[r], scale)
+            for gg, ww in zip(got, want):
+                e, t_ = max_err(gg[r], ww), ulp_tol(ww, 4)
+                require(e <= t_, f"{tag} K5 {tuple(q.shape)} row {i}: err {e} > {t_}")
+                if t_ and e / t_ >= (err / tol if tol else 0.0):
+                    err, tol = e, t_
+            del want
+        b, sq, h, d = q.shape
+        valid = int(kl.sum().item()) if kl is not None else b * k.shape[1]
+        flops, nb = 10.0 * h * d * sq * valid, nbytes(q, k, v, o, do, lse, *got)
+        what = (f"q {tuple(q.shape)} K/V {tuple(k.shape)}" + ("" if kl is None else " kv_lens")
+                + " (4 bf16 ulps)")
+        inputs = (q, k, v, o, do, lse)
     else:
         xd, gd, btd, ped, *wd, bod, heads, eps = sig
         x = make(xd)
@@ -1477,6 +1576,29 @@ def run_weights(torch, ops, kernel_mods, tmp: str):
     log(f"weights: pose2vid CLI run on the loaded pipeline, {FRAMES} frames, {STEPS} steps: "
         f"{sec:.3f} s, max_memory_allocated {peak:.2f} GiB, frames mean {frames.mean():.4f}; "
         f"launches " + json.dumps(counts))
+    del frames
+
+    # the training CLIs' --weights_dir: their models as load_all_weights
+    # loaded them above (the image CLI's denoiser stays seeded, as in JAX)
+    from mmgt_tpu_torch.config import Stage2ImageTrainConfig, Stage2TrainConfig
+    from mmgt_tpu_torch.scripts import train_stage2, train_stage2_image
+
+    for tag, mod, tcfg, names in (
+            ("train_stage2", train_stage2, Stage2TrainConfig(), tuple(pipe.models())),
+            ("train_stage2_image", train_stage2_image, Stage2ImageTrainConfig(),
+             ("vae", "reference_unet", "pose_guider"))):
+        t0 = time.perf_counter()
+        trainer, clip = mod.build(tcfg, "cuda", SEED + 1, root)
+        torch.cuda.synchronize()
+        require(clip is not None, f"weights: {tag}.build found no CLIP")
+        for name in names:
+            got_sd = getattr(trainer.pipeline, name).state_dict()
+            for k, v in getattr(pipe, name).state_dict().items():
+                require(torch.equal(got_sd[k], v), f"weights: {tag} {name}.{k} differs")
+        log(f"weights: {tag}.build(weights_dir) in {time.perf_counter() - t0:.1f} s: "
+            f"{', '.join(names)} equal to load_all_weights' and a CLIP model")
+        del trainer, clip, got_sd
+        torch.cuda.empty_cache()
     shutil.rmtree(root)
     del pipe, smga
     torch.cuda.empty_cache()
@@ -1502,8 +1624,10 @@ def make_train_batch(torch, b: int, frames: int, size: int, seed: int, device="c
                 else v.to(device)) for k, v in batch.items()}
 
 
-def run_train(torch, ops, Stage2Trainer):
-    """Full-width Stage-2 training steps on the card."""
+def run_train(torch, ops, Stage2Trainer, kernel_mods, tmp: str):
+    """Full-width Stage-2 training steps on the card, then 2 more through
+    the video CLI's `run` (`run_train_cli`). Returns (launches, launches
+    per step, the CLI run's launches, its recorded calls)."""
     t0 = time.perf_counter()
     trainer = Stage2Trainer.build(torch.bfloat16, device="cuda", seed=SEED, remat=True)
     state = trainer.init_state()
@@ -1557,9 +1681,12 @@ def run_train(torch, ops, Stage2Trainer):
         f"tensors changed {w_moved}/{len(state.trainable)}, frozen tensors unchanged "
         f"{len(frozen)}/{len(frozen)}")
     total = {k: sum(c[k] for c in per_step) for k in per_step[0]}
-    del trainer, state, frozen, frozen0, masters0, working0, batch
+    del frozen, frozen0, masters0, working0, batch
     torch.cuda.empty_cache()
-    return total, {k: n / TRAIN_STEPS for k, n in total.items()}
+    cli_counts, cli_calls = run_train_cli(torch, ops, kernel_mods, trainer, state, tmp)
+    del trainer, state
+    torch.cuda.empty_cache()
+    return total, {k: n / TRAIN_STEPS for k, n in total.items()}, cli_counts, cli_calls
 
 
 def tiny_pipeline(torch, Pose2VideoPipeline, device, dtype):
@@ -1628,6 +1755,396 @@ def run_train_small(torch, Pose2VideoPipeline, Stage2Trainer):
             f"{SMALL_ERR_FACTOR}x the plain bf16 error")
 
 
+def write_clip_records(root: str, n: int, frames: int, size: int, seed: int) -> str:
+    """n packed .npz clip records (seeded frames, pose maps, 64-level
+    masks and f16 audio embeddings, as `tools/prepare_stage2.py` packs
+    them) under `root` and their meta JSON; returns the meta's path."""
+    import numpy as np
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    h8 = size // 8
+    recs = []
+    for i in range(n):
+        path = os.path.join(root, f"clip{i}.npz")
+        np.savez(path, frames=rng.integers(0, 256, (frames, size, size, 3), dtype=np.uint8),
+                 pose=rng.integers(0, 256, (frames, size, size, 3), dtype=np.uint8),
+                 face_mask=rng.integers(0, 256, (frames, h8, h8), dtype=np.uint8),
+                 lips_mask=rng.integers(0, 256, (frames, h8, h8), dtype=np.uint8),
+                 audio_emb=rng.standard_normal((frames, 12, 768)).astype(np.float16))
+        recs.append({"record": path})
+    meta = os.path.join(root, "meta.json")
+    with open(meta, "w") as f:
+        json.dump(recs, f)
+    return meta
+
+
+def seeded_clip(torch, seed: int):
+    """CLIP ViT-L/14 at full width in bf16 on the card, seeded weights."""
+    from mmgt_tpu_torch.models.clip_vision import CLIPVisionModel
+    from mmgt_tpu_torch.pipelines.pose2vid import init_random_params
+
+    with torch.device("meta"):
+        clip = CLIPVisionModel()
+    clip.to_empty(device="cuda").to(torch.bfloat16)
+    return init_random_params(clip, torch.Generator(device="cuda").manual_seed(seed))
+
+
+def require_disk(tmp: str, need: int, tag: str):
+    import shutil
+
+    free = shutil.disk_usage(tmp).free
+    log(f"{tag}: {need} bytes to write, {free} free in the temporary directory")
+    require(free > need + 2**30, f"{tag}: {need} bytes to write, {free} free")
+
+
+def tree_bytes(tree) -> int:
+    return sum(v.numel() * v.element_size() for v in tree.values() if hasattr(v, "numel"))
+
+
+def run_train_cli(torch, ops, kernel_mods, trainer, state, tmp: str):
+    """The video CLI's `run` for 2 more steps on the train phase's trainer
+    and state, on a synthetic TalkingVideoDataset (2 records of 20 frames
+    at 512^2), ending in its checkpoint; returns (launches, calls)."""
+    import shutil
+
+    from mmgt_tpu_torch.config import Stage2TrainConfig
+    from mmgt_tpu_torch.data.datasets import TalkingVideoDataset
+    from mmgt_tpu_torch.scripts import train_stage2 as cli
+
+    root = os.path.join(tmp, "train_cli")
+    cfg = Stage2TrainConfig(meta_paths=[write_clip_records(root, 2, 20, SIZE, SEED + 61)],
+                            max_train_steps=state.step + 2, seed=SEED,
+                            checkpoint_dir=os.path.join(root, "ckpt"))
+    require_disk(tmp, tree_bytes(trainer.checkpoint_tree(state)), "train_cli")
+    ds = TalkingVideoDataset(cfg.meta_paths, cfg.n_sample_frames, cfg.audio_margin)
+    losses = []
+    state_out, counts, calls, sec, peak = record_call(torch, ops, kernel_mods, lambda: cli.run(
+        trainer, ds, cfg, state=state, on_step=lambda step, m: losses.append(float(m["loss"]))))
+    require(state_out.step == cfg.max_train_steps, f"train_cli: stopped at {state_out.step}")
+    require(all(math.isfinite(x) for x in losses), f"train_cli: losses {losses}")
+    require(counts["flash_attention_bwd"] == 2 * EXPECTED_K5_PER_STEP,
+            f"train_cli: K5 launched {counts['flash_attention_bwd']} times in 2 steps")
+    ckpt = os.path.join(cfg.checkpoint_dir, f"ckpt-{state_out.step}.ckpt")
+    log(f"train_cli: 2 steps through the video CLI's run, {sec:.3f} s with its checkpoint "
+        f"({os.path.getsize(ckpt)} bytes); losses {losses}; max_memory_allocated {peak:.2f} "
+        f"GiB; launches " + json.dumps(counts))
+    shutil.rmtree(root)
+    return counts, calls
+
+
+def run_train_image(torch, ops, kernel_mods, tmp: str):
+    """The image pretrain at full width through the image CLI's `run`:
+    256^2, batch 4, TRAIN_IMAGE_STEPS steps on a synthetic
+    HumanDanceDataset with a seeded full-width CLIP; then the run's last
+    checkpoint restored into a fresh state and one more step from it.
+    Returns (launches, launches per step, recorded calls)."""
+    import shutil
+
+    from mmgt_tpu_torch.config import Stage2ImageTrainConfig
+    from mmgt_tpu_torch.data.datasets import HumanDanceDataset
+    from mmgt_tpu_torch.scripts import train_stage2_image as cli
+    from mmgt_tpu_torch.training.loop import step_generator
+    from mmgt_tpu_torch.training.stage2 import encode_clip_batch
+    from mmgt_tpu_torch.utils.checkpoint import CheckpointManager
+
+    root = os.path.join(tmp, "train_image")
+    cfg = Stage2ImageTrainConfig(
+        meta_paths=[write_clip_records(root, 2, 40, TRAIN_IMAGE_SIZE, SEED + 60)],
+        max_train_steps=TRAIN_IMAGE_STEPS, seed=SEED, checkpoint_dir=os.path.join(root, "ckpt"))
+    require((cfg.train_height, cfg.batch_size) == (TRAIN_IMAGE_SIZE, 4), "train_image: config")
+    t0 = time.perf_counter()
+    trainer, _ = cli.build(cfg, "cuda", SEED)
+    clip = seeded_clip(torch, SEED + 62)
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for p in state.trainable.values())
+    n_ref = sum(p.numel() for n, p in state.trainable.items() if n.startswith("reference_unet."))
+    n_frozen = sum(p.numel() for p in state.frozen.values())
+    log(f"train_image: build + init_state {time.perf_counter() - t0:.1f} s; "
+        f"{len(state.trainable)} trainable tensors, {n_train} parameters ({n_ref} of them the "
+        f"ReferenceNet's), {len(state.frozen)} frozen ({n_frozen})")
+    require_disk(tmp, tree_bytes(trainer.checkpoint_tree(state)), "train_image")
+    masters0 = {n: m.cpu() for n, m in state.masters.items()}
+    frozen0 = {n: p.detach().cpu() for n, p in state.frozen.items()}
+    ds = HumanDanceDataset(cfg.meta_paths, cfg.sample_margin)
+    steps, per_step, losses = [], [], []
+    last = {}
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        now, counts = time.perf_counter(), ops.launch_counts()
+        per_step.append({k: counts[k] - last["counts"][k] for k in counts})
+        steps.append(now - last["t"])
+        losses.append(float(metrics["loss"]))
+        last.update(t=now, counts=counts)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    last.update(t=time.perf_counter(), counts=ops.launch_counts())
+    with LaunchRecorder(torch, kernel_mods) as rec:
+        cli.run(trainer, ds, cfg, clip, state=state, on_step=on_step)
+        torch.cuda.synchronize()
+    save_s = time.perf_counter() - last["t"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = ops.launch_counts()
+    for name, n in counts.items():
+        require(sum(c for (k, _), (c, _) in rec.calls.items() if k == name) == n,
+                f"train_image {name}: the recorded launches do not add up to the run's")
+    for i, (c, loss) in enumerate(zip(per_step, losses)):
+        log(f"train_image: step {i} loss {loss:.6f} {steps[i]:.3f} s launches " + json.dumps(c))
+        require(math.isfinite(loss), f"train_image step {i}: loss not finite")
+        require_launches(f"train_image step {i}", c, IMAGE_TRAIN_KERNELS)
+        require(c["flash_attention_bwd"] == EXPECTED_K5_PER_IMAGE_STEP,
+                f"train_image step {i}: K5 launched {c['flash_attention_bwd']} times, expected "
+                f"{EXPECTED_K5_PER_IMAGE_STEP}")
+    require(len(steps) == TRAIN_IMAGE_STEPS, f"train_image: {len(steps)} steps")
+    moved = [n for n, m in state.masters.items() if not torch.equal(m.cpu(), masters0[n])]
+    require(len(moved) == len(masters0),
+            f"train_image: {len(masters0) - len(moved)} f32 masters did not move")
+    changed = [n for n, p in state.frozen.items() if not torch.equal(p.detach().cpu(), frozen0[n])]
+    require(not changed, f"train_image: frozen tensors changed: {changed[:3]}")
+    require(any(n.startswith("vae.") for n in frozen0)
+            and any(n.startswith("reference_unet.up_blocks.3.") for n in frozen0),
+            "train_image: the VAE and the ReferenceNet's up_blocks.3 are not frozen")
+    del masters0, frozen0
+    later = steps[1:]
+    log(f"train_image: seconds per step after the first {later} (mean "
+        f"{sum(later) / len(later):.3f}); first {steps[0]:.3f}; max_memory_allocated {peak:.2f} "
+        f"GiB; f32 masters moved {len(moved)}/{len(moved)} (ReferenceNet's among them), frozen "
+        f"tensors unchanged {len(state.frozen)}/{len(state.frozen)}")
+
+    # the run's last checkpoint into a fresh state of other seeded weights
+    mgr = CheckpointManager(cfg.checkpoint_dir)
+    require(mgr.all_steps() == [TRAIN_IMAGE_STEPS], f"train_image: checkpoints {mgr.all_steps()}")
+    ckpt_bytes = os.path.getsize(mgr.path(TRAIN_IMAGE_STEPS))
+    fresh, _ = cli.build(cfg, "cuda", SEED + 1)
+    fresh_state = fresh.init_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    require(fresh.restore(fresh_state, mgr) == TRAIN_IMAGE_STEPS, "train_image: restored step")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    a, b = trainer.checkpoint_tree(state), fresh.checkpoint_tree(fresh_state)
+    require(set(a) == set(b), "train_image: the restored tree has other names")
+    differ = [k for k in a if (not torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+                               else a[k] != b[k])]
+    require(not differ, f"train_image: restored tensors differ: {differ[:3]}")
+    n_tensors = sum(isinstance(v, torch.Tensor) for v in a.values())
+    del a, b, trainer, state
+    torch.cuda.empty_cache()
+    raw = next(ds.batches(cfg.batch_size, cfg.seed + fresh_state.step))
+    batch = {k: torch.from_numpy(raw[k]).cuda() for k in ("tgt_image", "ref_image", "tgt_pose")}
+    batch["clip_embed"] = encode_clip_batch(clip, torch.from_numpy(raw["clip_image"]).cuda())
+    m = fresh.train_step(fresh_state, batch,
+                         generator=step_generator("cuda", cfg.seed, fresh_state.step))
+    loss = float(m["loss"])
+    require(math.isfinite(loss) and fresh_state.step == TRAIN_IMAGE_STEPS + 1,
+            f"train_image: the step after the restore gave loss {loss}")
+    log(f"train_image: checkpoint at step {TRAIN_IMAGE_STEPS}, {ckpt_bytes} bytes, written in "
+        f"{save_s:.3f} s (the run's last save), restored into a fresh state in {restore_s:.3f} s: "
+        f"{n_tensors} tensors and the step bitwise equal; one more step from it: loss "
+        f"{loss:.6f}")
+    total = {k: sum(c[k] for c in per_step) for k in per_step[0]}
+    calls = rec.calls
+    del fresh, fresh_state, clip, batch
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    return total, {k: n / TRAIN_IMAGE_STEPS for k, n in total.items()}, calls
+
+
+def run_train_image_small(torch):
+    """A tiny image trainer (the small pipeline's widths, no audio or
+    motion modules) at 64^2, batch 2 (row 1 drops its reference) three
+    ways as `train_small`: the loss and the flattened trainable gradients,
+    the ReferenceNet's among them, against CPU f32."""
+    from mmgt_tpu_torch.training.stage2_image import Stage2ImageTrainer
+
+    ref = tiny_pose2img(torch, "cpu", torch.float32)
+    runs = {"cpu_f32": ref, "cpu_bf16": tiny_pose2img(torch, "cpu", torch.bfloat16),
+            "card_bf16": tiny_pose2img(torch, "cuda", torch.bfloat16)}
+    for pipe in runs.values():
+        if pipe is not ref:
+            for name, m in ref.models().items():
+                getattr(pipe, name).load_state_dict(m.state_dict())
+    g = torch.Generator().manual_seed(SEED + 63)
+    b, size = 2, 64
+    batch = {"tgt_image": torch.rand(b, size, size, 3, generator=g) * 2 - 1,
+             "ref_image": torch.rand(b, size, size, 3, generator=g) * 2 - 1,
+             "tgt_pose": torch.rand(b, size, size, 3, generator=g),
+             "clip_embed": torch.randn(b, 1, 768, generator=g)}
+    draws = Stage2ImageTrainer(ref).draws(b, size // 8, size // 8, g)
+    draws["keep"] = torch.tensor([True, False])  # one row without its reference
+    out = {}
+    for tag, pipe in runs.items():
+        trainer = Stage2ImageTrainer(pipe)
+        state = trainer.init_state()
+        loss, _ = trainer.loss_fn(batch, draws)
+        names = list(state.trainable)
+        grads = torch.autograd.grad(loss, [state.trainable[n] for n in names], allow_unused=True)
+        flat = torch.cat([(torch.zeros_like(state.trainable[n]) if gr is None else gr)
+                          .float().cpu().reshape(-1) for n, gr in zip(names, grads)])
+        ref_g = torch.cat([gr.float().cpu().reshape(-1) for n, gr in zip(names, grads)
+                           if gr is not None and n.startswith("reference_unet.")])
+        out[tag] = (loss.item(), flat, ref_g)
+    f32_loss, f32_g, f32_ref = out["cpu_f32"]
+    require(f32_ref.abs().max().item() > 0, "train_image_small: no ReferenceNet gradient")
+    errs = {tag: (abs(out[tag][0] - f32_loss), (out[tag][1] - f32_g).abs().mean().item(),
+                  (out[tag][2] - f32_ref).abs().mean().item())
+            for tag in ("cpu_bf16", "card_bf16")}
+    log(f"train_image_small: loss cpu_f32 {f32_loss:.6f} cpu_bf16 {out['cpu_bf16'][0]:.6f} "
+        f"card_bf16 {out['card_bf16'][0]:.6f}; |loss err|, mean |grad err| (all trainable; "
+        f"the ReferenceNet's) vs CPU f32 (mean |grad| {f32_g.abs().mean().item():.3e}, the "
+        f"ReferenceNet's {f32_ref.abs().mean().item():.3e}): plain bf16 on the CPU "
+        f"{errs['cpu_bf16']}, kernels bf16 on the card {errs['card_bf16']} (tol: "
+        f"{SMALL_ERR_FACTOR}x the plain bf16 error; the loss's floored at one bf16 ulp)")
+    require(all(math.isfinite(v[0]) and bool(torch.isfinite(v[1]).all()) for v in out.values()),
+            "train_image_small: loss or gradients not finite")
+    loss_floor = max(errs["cpu_bf16"][0], 2.0 ** -8 * abs(f32_loss))
+    require(errs["card_bf16"][0] <= SMALL_ERR_FACTOR * loss_floor,
+            "train_image_small: the card's loss error exceeds the bound")
+    for i, what in ((1, "gradient"), (2, "ReferenceNet gradient")):
+        require(errs["card_bf16"][i] <= SMALL_ERR_FACTOR * errs["cpu_bf16"][i],
+                f"train_image_small: the card's {what} error exceeds {SMALL_ERR_FACTOR}x the "
+                f"plain bf16 error")
+
+
+def write_gesture_dir(root: str, n: int, seed: int) -> str:
+    """n aligned Stage-1 items: keypoints (80, 402) in [0, 1] and WavLM +
+    baseline features (80, 1059), seeded."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for sub in ("keypoints", "wavlm_feats"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for i in range(n):
+        np.save(os.path.join(root, "keypoints", f"c{i}.npy"),
+                rng.uniform(0, 1, (80, 402)).astype(np.float32))
+        np.save(os.path.join(root, "wavlm_feats", f"c{i}.npy"),
+                rng.standard_normal((80, 1059)).astype(np.float32))
+    return root
+
+
+def run_train_a2p(torch, ops, tmp: str):
+    """The SMGA trainer at the reference's widths (8 x 512, ff 1024, a
+    1059-d condition), f32, TF32 off, batch A2P_BATCH, A2P_STEPS steps
+    through the Stage-1 CLI's `run`; the EMA held to d ema + (1 - d) params
+    after each step; then one more step on the card against the same step
+    on the CPU in f32. Returns its launches (none: no kernel here)."""
+    import shutil
+
+    from mmgt_tpu_torch.config import Stage1TrainConfig
+    from mmgt_tpu_torch.data.datasets import GestureDataset
+    from mmgt_tpu_torch.scripts import train_a2p as cli
+    from mmgt_tpu_torch.training.adan import Adan
+    from mmgt_tpu_torch.training.stage1 import SMGA
+
+    root = os.path.join(tmp, "train_a2p")
+    cfg = Stage1TrainConfig(data_dir=write_gesture_dir(os.path.join(root, "data"), A2P_BATCH,
+                                                       SEED + 70),
+                            epochs=A2P_STEPS, checkpoint_dir=os.path.join(root, "ckpt"), seed=SEED)
+    require(cfg.batch_size == A2P_BATCH and cfg.feature_type == "wavlm", "train_a2p: config")
+    smga = cli.build(cfg, "cuda", SEED)
+    state = smga.init_state()
+    n_params = sum(p.numel() for p in state.params.values())
+    require(all(torch.equal(state.ema[n], p) for n, p in state.params.items()),
+            "train_a2p: the EMA does not start equal to the parameters")
+    ds = GestureDataset(cfg.data_dir, cfg.feature_type)
+    d = smga.ema_decay
+    prev = {n: e.clone() for n, e in state.ema.items()}
+    steps, losses, ema_errs = [], [], []
+    last = {}
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        steps.append(now - last["t"])
+        losses.append(float(metrics["loss"]))
+        worst = 0.0
+        for n, p in state.params.items():
+            want = prev[n] * d + p.detach() * (1.0 - d)
+            worst = max(worst, (state.ema[n] - want).abs().max().item()
+                        / max(want.abs().max().item(), 1e-30))
+            prev[n].copy_(state.ema[n])
+        ema_errs.append(worst)
+        last["t"] = time.perf_counter()
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    last["t"] = time.perf_counter()
+    cli.run(smga, ds, cfg, state=state, on_step=on_step)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(len(steps) == A2P_STEPS and all(math.isfinite(x) for x in losses),
+            f"train_a2p: losses {losses}")
+    # e d + p (1 - d) on either side: each product rounds once, the sum once
+    require(max(ema_errs) <= 2.0 ** -23, f"train_a2p: EMA off by {max(ema_errs)} (relative)")
+    require(not any(counts.values()), "train_a2p: a kernel was launched " + json.dumps(counts))
+    later = steps[1:]
+    log(f"train_a2p: {n_params} parameters, batch {A2P_BATCH} x 80 frames, f32: losses "
+        f"{losses}; seconds per step after the first {later} (mean {sum(later) / len(later):.3f}),"
+        f" first {steps[0]:.3f}; max_memory_allocated {peak:.2f} GiB; EMA against d ema + "
+        f"(1 - d) params after each step, largest relative error {ema_errs}")
+
+    # one more step on the card and the same step on the CPU (f32)
+    cpu = SMGA(feature_type=cfg.feature_type)
+    cpu.model.load_state_dict(smga.model.state_dict())
+    cs = cpu.init_state()
+    for n in cs.ema:
+        cs.ema[n].copy_(state.ema[n].cpu())
+    for k in Adan.BUFFERS:
+        for dst, src in zip(cs.opt.buffers[k], state.opt.buffers[k]):
+            dst.copy_(src.cpu())
+    cs.opt.step_count, cs.step = state.opt.step_count, state.step
+    raw = next(ds.batches(A2P_CPU_ROWS, SEED + 72))
+    batch = {k: torch.from_numpy(v) for k, v in raw.items()}
+    draws = cpu.draws(A2P_CPU_ROWS, torch.Generator().manual_seed(SEED + 73))
+    g_prev = [g.clone() for g in cs.opt.buffers["prev_grad"]]
+    card_m = smga.train_step(state, {k: v.cuda() for k, v in batch.items()},
+                             {k: v.cuda() for k, v in draws.items()})
+    t0 = time.perf_counter()
+    cpu_m = cpu.train_step(cs, batch, draws)
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(float(card_m["loss"]) - float(cpu_m["loss"])) / abs(float(cpu_m["loss"]))
+    g_card = [g.cpu() for g in state.opt.buffers["prev_grad"]]
+    g_cpu = cs.opt.buffers["prev_grad"]
+    g_max = max(g.abs().max().item() for g in g_cpu)
+    g_err = max((a - b).abs().max().item() for a, b in zip(g_card, g_cpu)) / g_max
+    lr = smga.learning_rate
+    p_max = max(p.abs().max().item() for p in cs.params.values())
+    held = total = 0
+    worst = {"params": 0.0, "ema": 0.0}
+    for i, n in enumerate(cs.params):
+        # Adan divides by |g + (1 - b2)(g - g_prev)|: held where that is 10 x
+        # the gradients' largest card-vs-CPU difference away from 0, so the
+        # difference moves the ratio by under 10 %
+        nx = g_cpu[i] + 0.92 * (g_cpu[i] - g_prev[i])
+        settled = nx.abs() > 10 * g_err * g_max
+        for what, card_t, cpu_t in (("params", state.params[n].detach(), cs.params[n].detach()),
+                                    ("ema", state.ema[n], cs.ema[n])):
+            err = (card_t.cpu() - cpu_t).abs()[settled]
+            worst[what] = max(worst[what], err.max().item() if err.numel() else 0.0)
+        held, total = held + int(settled.sum()), total + settled.numel()
+    p_tol = 1e-6 * p_max + 0.1 * lr
+    log(f"train_a2p_card_vs_cpu: one step of {A2P_CPU_ROWS} rows (CPU {cpu_s:.1f} s): loss "
+        f"{float(card_m['loss']):.6f} vs {float(cpu_m['loss']):.6f} (relative err {loss_err:.3e},"
+        f" tol {A2P_LOSS_TOL:g}); gradients' max err / max |g| {g_err:.3e} (tol "
+        f"{A2P_GRAD_TOL:g}); weights and EMA where Adan's denominator is settled "
+        f"({held}/{total} = {held / total:.4f} of them): max err {worst} (tol {p_tol:.3e} = "
+        f"1e-6 max|p| + 0.1 lr)")
+    require(loss_err <= A2P_LOSS_TOL, "train_a2p_card_vs_cpu: loss")
+    require(g_err <= A2P_GRAD_TOL, "train_a2p_card_vs_cpu: gradients")
+    require(max(worst.values()) <= p_tol, "train_a2p_card_vs_cpu: weights or EMA")
+    require(held >= 0.8 * total, "train_a2p_card_vs_cpu: too few settled weights to hold")
+    del smga, state, cpu, cs
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    return counts
+
+
 def run_profile_train(torch, Stage2Trainer):
     """One full-width train step under torch.profiler (after a warm-up
     step): device time by kernel family and the idle share."""
@@ -1650,6 +2167,53 @@ def run_profile_train(torch, Stage2Trainer):
         step()
     report_profile(prof, "one train step: 12 frames, bs 1, 512x512, remat", wall_ms)
     report_k2_calls(torch, step)
+
+
+def run_profile_train_image(torch):
+    """One full-width image-pretrain step (256^2, batch 4, random batch)
+    under torch.profiler after a warm-up step; then one SMGA step at
+    A2P_BATCH likewise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmgt_tpu_torch.training.stage1 import SMGA
+    from mmgt_tpu_torch.training.stage2_image import Stage2ImageTrainer
+
+    def profiled(step, what):
+        step()
+        t0 = time.perf_counter()
+        step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+        report_profile(prof, what, wall_ms)
+
+    trainer = Stage2ImageTrainer.build(torch.bfloat16, device="cuda", seed=SEED)
+    state = trainer.init_state()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    b, size = 4, TRAIN_IMAGE_SIZE
+    batch = {"tgt_image": torch.rand(b, size, size, 3, generator=g, device="cuda") * 2 - 1,
+             "ref_image": torch.rand(b, size, size, 3, generator=g, device="cuda") * 2 - 1,
+             "tgt_pose": torch.rand(b, size, size, 3, generator=g, device="cuda"),
+             "clip_embed": torch.randn(b, 1, 768, generator=g, device="cuda")}
+
+    def image_step():
+        trainer.train_step(state, batch, generator=g)
+        torch.cuda.synchronize()
+
+    profiled(image_step, "one image-pretrain step: 256x256, bs 4, no remat")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    smga = SMGA.build("cuda", SEED)
+    sstate = smga.init_state()
+    sbatch = {"keypoints": torch.rand(A2P_BATCH, 80, 402, generator=g, device="cuda"),
+              "cond_frame": torch.rand(A2P_BATCH, 402, generator=g, device="cuda"),
+              "audio_features": torch.randn(A2P_BATCH, 80, 1059, generator=g, device="cuda")}
+
+    def smga_step():
+        smga.train_step(sstate, sbatch, generator=g)
+        torch.cuda.synchronize()
+
+    profiled(smga_step, f"one SMGA step: batch {A2P_BATCH} x 80 frames, f32")
 
 
 def report_k2_calls(torch, step):
@@ -1733,9 +2297,10 @@ def main(argv) -> int:
     if argv:
         run_profile(torch, Pose2VideoPipeline)
         run_profile_train(torch, Stage2Trainer)
+        run_profile_train_image(torch)
     else:
         kernel_mods = {"flash_attention": A, "group_norm": N, "ln_projections": L,
-                       "motion_attention": M}
+                       "motion_attention": M, "flash_attention_bwd": A}
         t0 = time.perf_counter()
         recs = {"flash_attention": check_k1(torch, A), "group_norm": check_k2(torch, N),
                 "ln_projections": check_k3(torch, L), "motion_attention": check_k4(torch, M),
@@ -1774,10 +2339,23 @@ def main(argv) -> int:
                     paths[tag] = dict(launches=counts_, calls=check_a2v_calls(
                         torch, calls_, A, N, L, M, tag, checked))
                 log(f"{tag}: {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        train_counts, train_per_step = run_train(torch, ops, Stage2Trainer)
-        run_train_small(torch, Pose2VideoPipeline, Stage2Trainer)
-        log(f"train + train_small: {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            train_counts, train_per_step, cli_counts, cli_calls = run_train(
+                torch, ops, Stage2Trainer, kernel_mods, tmp)
+            paths["train_cli"] = dict(launches=cli_counts, calls=check_a2v_calls(
+                torch, cli_calls, A, N, L, M, "train_cli", checked))
+            run_train_small(torch, Pose2VideoPipeline, Stage2Trainer)
+            log(f"train + train_cli + train_small: {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            image_counts, image_per_step, image_calls = run_train_image(torch, ops, kernel_mods,
+                                                                        tmp)
+            paths["train_image"] = dict(launches=image_counts, calls=check_a2v_calls(
+                torch, image_calls, A, N, L, M, "train_image", checked))
+            run_train_image_small(torch)
+            log(f"train_image + train_image_small: {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            paths["train_a2p"] = dict(launches=run_train_a2p(torch, ops, tmp), calls={})
+            log(f"train_a2p: {time.perf_counter() - t0:.1f} s")
         kernels = []
         for name, r in recs.items():
             title, route, source, replaces = KERNEL_META[name]
@@ -1788,6 +2366,7 @@ def main(argv) -> int:
                 a2v_calls=a2v_per_kernel.get(name),
                 launches_per_step=per_step[name],
                 train_launches_per_step=train_per_step[name],
+                train_image_launches_per_step=image_per_step[name],
                 path_launches={tag: p["launches"][name] for tag, p in paths.items()},
                 path_calls={tag: p["calls"].get(name) for tag, p in paths.items()},
                 max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],

@@ -1,12 +1,15 @@
-"""Inference configuration: a copy of `SchedulerConfig`, `InferenceConfig`
-and `load_config` from `mmgt_tpu/config.py` (the training configs wait for
-the training slices). The yaml import stays lazy."""
+"""Configuration: a copy of `mmgt_tpu/config.py` (`SchedulerConfig`,
+`InferenceConfig`, the three training configs and `load_config`). PyYAML is
+imported only when a `.yaml` file is passed; JSON files and overrides need
+nothing beyond the standard library. The training configs keep the JAX
+package's `mesh_dp` / `mesh_tp` fields so that its config files load; the
+port trains on one card and does not read them."""
 from __future__ import annotations
 
 import dataclasses
 import json
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass
@@ -59,6 +62,74 @@ class InferenceConfig:
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     # weight paths (optional; random init if absent)
     weights_dir: Optional[str] = None
+
+
+@dataclasses.dataclass
+class Stage1TrainConfig:
+    """SMGA audio2pose training (args.py:24-25, SMGA.py:110-114)."""
+
+    batch_size: int = 128
+    epochs: int = 3400
+    learning_rate: float = 2e-4
+    weight_decay: float = 0.02
+    feature_type: str = "wavlm"
+    ema_decay: float = 0.9999
+    cond_drop_prob: float = 0.25
+    guidance_weight: float = 2.0
+    checkpoint_dir: str = "checkpoints/stage1"
+    checkpoint_every_epochs: int = 50
+    data_dir: str = "data/stage1"
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class Stage2TrainConfig:
+    """Stage-2 temporal/audio fine-tune (config/train/stage2.yaml)."""
+
+    train_width: int = 512
+    train_height: int = 512
+    n_sample_frames: int = 12
+    audio_margin: int = 2
+    batch_size: int = 1
+    max_train_steps: int = 32500
+    learning_rate: float = 1e-5
+    weight_decay: float = 1e-2
+    max_grad_norm: float = 1.0
+    snr_gamma: float = 5.0
+    noise_offset: float = 0.05
+    uncond_img_ratio: float = 0.1
+    uncond_audio_ratio: float = 0.05
+    motion_scale: Tuple[float, float, float] = (1.0, 2.0, 3.0)
+    checkpointing_steps: int = 500
+    checkpoint_dir: str = "checkpoints/stage2"
+    meta_paths: Sequence[str] = ()
+    seed: int = 12580
+    mesh_dp: Optional[int] = None
+    mesh_tp: int = 1
+
+
+@dataclasses.dataclass
+class Stage2ImageTrainConfig:
+    """Stage-2 process-1 single-image pretrain (reference
+    config/train/stage1.yaml + train_stage_1.py)."""
+
+    train_width: int = 256
+    train_height: int = 256
+    sample_margin: int = 30
+    batch_size: int = 4
+    max_train_steps: int = 30000
+    learning_rate: float = 1e-5
+    weight_decay: float = 1e-2
+    max_grad_norm: float = 1.0
+    snr_gamma: float = 5.0
+    noise_offset: float = 0.05
+    uncond_ratio: float = 0.1
+    checkpointing_steps: int = 2000
+    checkpoint_dir: str = "checkpoints/stage2_image"
+    meta_paths: Sequence[str] = ()
+    seed: int = 12580
+    mesh_dp: Optional[int] = None
+    mesh_tp: int = 1
 
 
 def load_config(cls, path: Optional[str] = None, **overrides):

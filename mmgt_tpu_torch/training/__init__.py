@@ -1,1 +1,2 @@
-"""Training loops of the port (Stage 2)."""
+"""Training of the port: Stage 1 (SMGA with Adan + EMA), Stage 2 (the video
+fine-tune and the image pretrain), and the training CLIs' step loop."""

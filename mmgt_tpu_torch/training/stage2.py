@@ -11,11 +11,9 @@ One `train_step`:
      guider its features, the trained AudioProjModel the audio tokens; the
      denoiser runs with the raw banks and `bank_gate = keep_img`;
   5. min-SNR-gamma weighted MSE;
-  6. the gradients of the trainable half are added into f32 buffers;
-     every `gradient_accumulation_steps` steps their mean is clipped to a
-     global norm of `max_grad_norm` (optax `clip_by_global_norm`: scaled only
-     when the norm exceeds it) and AdamW (optax semantics) updates the f32
-     master copies, which are copied back into the working weights.
+  6. the optimizer half, `F32MasterAdamW` (shared with
+     `stage2_image.Stage2ImageTrainer`): f32 gradient sums, the global-norm
+     clip and AdamW on f32 master copies, and the checkpoint tree.
 All randomness is drawn up front (`draws`), so a checkpointed recompute
 draws nothing. The frozen branches run under `torch.no_grad()`.
 
@@ -23,6 +21,9 @@ Trainable set: the JAX package's, `TRAINABLE_KEYWORDS` applied to each
 parameter's flax path (found through this package's copy of `map_unet3d`).
 That reproduces its deviation from the reference: `mid_motion` has no
 trailing underscore, so the mid block's motion module stays frozen.
+
+`encode_clip_batch` turns a dataset's `clip_image` into the trainers'
+`clip_embed`.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ import torch
 from mmgt_tpu_torch.diffusion.ddim import DDIMScheduler
 from mmgt_tpu_torch.diffusion.losses import min_snr_weight
 from mmgt_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline
-from mmgt_tpu_torch.utils.convert import map_unet3d
+from mmgt_tpu_torch.utils.convert import map_unet2d, map_unet3d
 
 TRAINABLE_KEYWORDS = ("_audio_", "_motion_", "audio_proj")
 
@@ -54,33 +55,108 @@ def _unet3d_module_names(unet) -> List[str]:
     return names
 
 
-def _flax_path(pipeline: Pose2VideoPipeline, model: str, key: str) -> str:
+def _unet2d_module_names(unet) -> List[str]:
+    """The flax names of ReferenceUNet2D's top-level modules."""
+    n, layers = len(unet.block_out_channels), len(unet.down_blocks[0].resnets)
+    names = ["conv_in", "time_embedding", "conv_norm_out", "conv_out",
+             "mid_res_0", "mid_res_1", "mid_attn"]
+    for bi in range(n):
+        names += [f"down_{bi}_{kind}_{li}" for li in range(layers)
+                  for kind in ("res",) + (("attn",) if bi < n - 1 else ())]
+        names += [f"up_{bi}_{kind}_{li}" for li in range(layers + 1)
+                  for kind in ("res",) + (("attn",) if bi > 0 else ())]
+        if bi < n - 1:
+            names += [f"down_{bi}_downsample", f"up_{bi}_upsample"]
+    return names
+
+
+_UNET_NAMES = {"denoising_unet": (_unet3d_module_names, map_unet3d),
+               "reference_unet": (_unet2d_module_names, map_unet2d)}
+
+
+def _flax_path(module, model: str, key: str) -> str:
     """The flax path ("<model>/params/<module>") that the JAX package's
-    `partition_params` tests for the port parameter `key` of `model`. For
-    the denoiser the module is the top-level flax module whose leaves
-    `map_unet3d` maps under the key's prefix."""
-    if model != "denoising_unet":
+    partitions test for the port parameter `key` of `model` (the nn.Module
+    `module`). For the two UNets the flax module is the top-level one whose
+    leaves `map_unet3d` / `map_unet2d` map under the key's prefix; other
+    models keep the port key."""
+    if model not in _UNET_NAMES:
         return f"{model}/params/{key}"
+    names, mapper = _UNET_NAMES[model]
     best = None
-    for name in _unet3d_module_names(pipeline.denoising_unet):
-        prefix = map_unet3d(f"{name}/kernel")[: -len(".weight")]
+    for name in names(module):
+        prefix = mapper(f"{name}/kernel")[: -len(".weight")]
         if key.startswith(prefix + ".") and (best is None or len(prefix) > len(best[0])):
             best = (prefix, name)
     if best is None:
-        raise KeyError(f"no flax module of the denoiser maps to {key}")
+        raise KeyError(f"no flax module of {model} maps to {key}")
     return f"{model}/params/{best[1]}"
+
+
+def partition_by_path(models: Dict[str, torch.nn.Module], trainable_path
+                      ) -> Tuple[Dict[str, torch.nn.Parameter], Dict[str, torch.nn.Parameter]]:
+    """(trainable, frozen), keyed "<model>.<state-dict key>", split by
+    `trainable_path(flax path)`."""
+    train, frozen = {}, {}
+    for model, module in models.items():
+        for key, p in module.named_parameters():
+            hit = trainable_path(_flax_path(module, model, key))
+            (train if hit else frozen)[f"{model}.{key}"] = p
+    return train, frozen
 
 
 def partition_params(pipeline: Pose2VideoPipeline
                      ) -> Tuple[Dict[str, torch.nn.Parameter], Dict[str, torch.nn.Parameter]]:
     """(trainable, frozen), keyed "<model>.<state-dict key>"."""
-    train, frozen = {}, {}
-    for model, module in pipeline.models().items():
-        for key, p in module.named_parameters():
-            path = _flax_path(pipeline, model, key)
-            hit = any(kw in path for kw in TRAINABLE_KEYWORDS)
-            (train if hit else frozen)[f"{model}.{key}"] = p
-    return train, frozen
+    return partition_by_path(pipeline.models(),
+                             lambda path: any(kw in path for kw in TRAINABLE_KEYWORDS))
+
+
+@torch.no_grad()
+def encode_clip_batch(clip_model, images: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 3) images in [0, 1] -> (B, 1, 768) f32 CLIP image
+    embeddings on the model's device (`mmgt_tpu/training/stage2.py:56`;
+    reference train_stage_2.py:793-812). Without a CLIP model: zeros on
+    the images' device, as permanent uncond-image dropout."""
+    from mmgt_tpu_torch.models.clip_vision import clip_preprocess
+
+    if clip_model is None:
+        return torch.zeros((images.shape[0], 1, 768), dtype=torch.float32, device=images.device)
+    w = clip_model.visual_projection.weight
+    x = clip_preprocess(images.to(w.device, torch.float32))
+    return clip_model(x.to(w.dtype)).float()
+
+
+class AdamW:
+    """optax `adamw` (b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay)
+    over lists of f32 tensors, in place, in the order of PyTorch's foreach
+    AdamW: p *= 1 - lr wd; m = lerp(m, g, 1 - b1); v = b2 v +
+    (1 - b2) g^2; p -= lr / (1 - b1^t) * m / (sqrt(v) / sqrt(1 - b2^t) +
+    eps). The port keeps its own so that its state is plain tensors (`m`,
+    `v`, `step_count`) that exist from the start."""
+
+    def __init__(self, params: List[torch.Tensor], lr: float, weight_decay: float,
+                 betas=(0.9, 0.999), eps: float = 1e-8):
+        self.params, self.lr, self.weight_decay = list(params), lr, weight_decay
+        self.betas, self.eps = tuple(betas), eps
+        self.step_count = 0
+        self.m = [torch.zeros_like(p) for p in self.params]
+        self.v = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor]) -> None:
+        b1, b2 = self.betas
+        self.step_count += 1
+        if self.weight_decay:
+            torch._foreach_mul_(self.params, 1.0 - self.lr * self.weight_decay)
+        torch._foreach_lerp_(self.m, grads, 1.0 - b1)
+        torch._foreach_mul_(self.v, b2)
+        torch._foreach_addcmul_(self.v, grads, grads, 1.0 - b2)
+        denom = torch._foreach_sqrt(self.v)
+        torch._foreach_div_(denom, (1.0 - b2 ** self.step_count) ** 0.5)
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_addcdiv_(self.params, self.m, denom,
+                                -self.lr / (1.0 - b1 ** self.step_count))
 
 
 @dataclasses.dataclass(eq=False)
@@ -89,12 +165,100 @@ class TrainState:
     trainable: Dict[str, torch.nn.Parameter]   # working weights (model dtype)
     masters: Dict[str, torch.Tensor]           # f32 copies AdamW updates
     grad_acc: Dict[str, torch.Tensor]          # f32 gradient sums
-    optimizer: torch.optim.Optimizer
+    optimizer: AdamW                           # over the masters
     micro: int = 0                             # steps accumulated so far
+    frozen: Dict[str, torch.nn.Parameter] = dataclasses.field(default_factory=dict)
+
+
+class F32MasterAdamW:
+    """The optimizer half of a Stage-2 trainer. The subclass gives
+    `learning_rate`, `weight_decay`, `max_grad_norm`,
+    `gradient_accumulation_steps`, `partition()` -> (trainable, frozen),
+    `loss_fn(batch, draws)` and `batch_draws(batch, generator)`.
+
+    A step adds the trainable gradients into f32 buffers; every
+    `gradient_accumulation_steps` steps their mean is clipped to a global
+    norm of `max_grad_norm` (optax `clip_by_global_norm`: scaled only when
+    the norm exceeds it) and AdamW (optax semantics) updates the f32 master
+    copies, which are copied back into the working weights. A trainable
+    tensor the loss does not reach gets a zero gradient (and so weight
+    decay only), as in JAX."""
+
+    def init_state(self) -> TrainState:
+        trainable, frozen = self.partition()
+        for p in frozen.values():
+            p.requires_grad_(False)
+        masters = {}
+        for name, p in trainable.items():
+            p.requires_grad_(True)
+            masters[name] = p.detach().float().clone()
+        opt = AdamW(list(masters.values()), self.learning_rate, self.weight_decay)
+        acc = {n: torch.zeros_like(m) for n, m in masters.items()}
+        return TrainState(0, trainable, masters, acc, opt, frozen=frozen)
+
+    def train_step(self, state: TrainState, batch: Dict,
+                   draws: Optional[Dict[str, torch.Tensor]] = None,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """One step on `state`, in place; returns the step's metrics."""
+        if draws is None:
+            draws = self.batch_draws(batch, generator)
+        names = list(state.trainable)
+        loss, metrics = self.loss_fn(batch, draws)
+        grads = torch.autograd.grad(loss, [state.trainable[n] for n in names], allow_unused=True)
+        for n, g in zip(names, grads):
+            if g is not None:
+                state.grad_acc[n].add_(g.float())
+        del grads
+        state.micro += 1
+        state.step += 1
+        if state.micro == self.gradient_accumulation_steps:
+            self._apply(state, names)
+        return metrics
+
+    @torch.no_grad()
+    def _apply(self, state: TrainState, names: List[str]) -> None:
+        """Mean of the accumulated gradients -> global-norm clip -> AdamW on
+        the f32 masters -> the working weights."""
+        grads = [state.grad_acc[n] for n in names]
+        for g in grads:
+            g.div_(self.gradient_accumulation_steps)
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        scale = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
+                            self.max_grad_norm / norm)
+        torch._foreach_mul_(grads, scale)
+        state.optimizer.step(grads)
+        for n in names:
+            state.trainable[n].copy_(state.masters[n])
+            state.grad_acc[n].zero_()
+        state.micro = 0
+
+    def checkpoint_tree(self, state: TrainState) -> Dict[str, Union[torch.Tensor, int]]:
+        """Everything a resume needs, by name: the step, the working
+        weights, the f32 masters, AdamW's moments and step, the frozen
+        weights and, with gradient accumulation, the partial sums."""
+        opt = state.optimizer
+        tree: Dict[str, Union[torch.Tensor, int]] = {"step": state.step,
+                                                     "adamw/step": opt.step_count}
+        for i, (n, p) in enumerate(state.trainable.items()):
+            tree[f"trainable/{n}"], tree[f"master/{n}"] = p.data, state.masters[n]
+            tree[f"adamw/m/{n}"], tree[f"adamw/v/{n}"] = opt.m[i], opt.v[i]
+        tree.update({f"frozen/{n}": p.data for n, p in state.frozen.items()})
+        if self.gradient_accumulation_steps > 1:
+            tree["micro"] = state.micro
+            tree.update({f"grad_acc/{n}": g for n, g in state.grad_acc.items()})
+        return tree
+
+    def restore(self, state: TrainState, manager, step: Optional[int] = None) -> int:
+        """Load checkpoint `step` (default: the latest) of `manager` into
+        `state` in place; returns the restored step."""
+        got = manager.restore(self.checkpoint_tree(state), step)
+        state.step, state.micro = got["step"], got.get("micro", 0)
+        state.optimizer.step_count = got["adamw/step"]
+        return state.step
 
 
 @dataclasses.dataclass(eq=False)
-class Stage2Trainer:
+class Stage2Trainer(F32MasterAdamW):
     pipeline: Pose2VideoPipeline
     learning_rate: float = 1e-5
     weight_decay: float = 1e-2
@@ -121,19 +285,12 @@ class Stage2Trainer:
         pipe.denoising_unet.remat = remat
         return cls(pipe, **kwargs)
 
-    # ------------------------------------------------------------------
-    def init_state(self) -> TrainState:
-        trainable, frozen = partition_params(self.pipeline)
-        for p in frozen.values():
-            p.requires_grad_(False)
-        masters = {}
-        for name, p in trainable.items():
-            p.requires_grad_(True)
-            masters[name] = p.detach().float().clone()
-        opt = torch.optim.AdamW(list(masters.values()), lr=self.learning_rate,
-                                betas=(0.9, 0.999), eps=1e-8, weight_decay=self.weight_decay)
-        acc = {n: torch.zeros_like(m) for n, m in masters.items()}
-        return TrainState(0, trainable, masters, acc, opt)
+    def partition(self):
+        return partition_params(self.pipeline)
+
+    def batch_draws(self, batch: Dict, generator: Optional[torch.Generator] = None):
+        b, f, hh, ww = batch["pixel_values"].shape[:4]
+        return self.draws(b, f, hh // 8, ww // 8, generator)
 
     def draws(self, b: int, f: int, h8: int, w8: int,
               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
@@ -185,45 +342,6 @@ class Stage2Trainer:
         w = min_snr_weight(self.scheduler.tables, t, self.snr_gamma, "v_prediction")
         loss = (w * per_example).mean()
         return loss, {"loss": loss.detach(), "mse": per_example.mean().detach()}
-
-    def train_step(self, state: TrainState, batch: Dict,
-                   draws: Optional[Dict[str, torch.Tensor]] = None,
-                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """One step on `state`, in place; returns the step's metrics."""
-        if draws is None:
-            b, f, hh, ww = batch["pixel_values"].shape[:4]
-            draws = self.draws(b, f, hh // 8, ww // 8, generator)
-        names = list(state.trainable)
-        loss, metrics = self.loss_fn(batch, draws)
-        grads = torch.autograd.grad(loss, [state.trainable[n] for n in names])
-        for n, g in zip(names, grads):
-            state.grad_acc[n].add_(g.float())
-        del grads
-        state.micro += 1
-        state.step += 1
-        if state.micro == self.gradient_accumulation_steps:
-            self._apply(state, names)
-        return metrics
-
-    @torch.no_grad()
-    def _apply(self, state: TrainState, names: List[str]) -> None:
-        """Mean of the accumulated gradients -> global-norm clip -> AdamW on
-        the f32 masters -> the working weights."""
-        grads = [state.grad_acc[n] for n in names]
-        for g in grads:
-            g.div_(self.gradient_accumulation_steps)
-        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-        scale = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
-                            self.max_grad_norm / norm)
-        for n, g in zip(names, grads):
-            g.mul_(scale)
-            state.masters[n].grad = g
-        state.optimizer.step()
-        for n in names:
-            state.masters[n].grad = None
-            state.trainable[n].copy_(state.masters[n])
-            state.grad_acc[n].zero_()
-        state.micro = 0
 
     def make_example_batch(self, b: int = 1, f: int = 12, height: int = 512,
                            width: int = 512) -> Dict:

@@ -37,7 +37,12 @@ new = {"mmgt_tpu_torch.config", "mmgt_tpu_torch.data.dsp", "mmgt_tpu_torch.data.
        "mmgt_tpu_torch.scripts.audio2vid", "mmgt_tpu_torch.diffusion.dpm",
        "mmgt_tpu_torch.pipelines.pose2img", "mmgt_tpu_torch.pipelines.lmks2vid",
        "mmgt_tpu_torch.pipelines.interp", "mmgt_tpu_torch.utils.weights",
-       "mmgt_tpu_torch.scripts.pose2vid"}
+       "mmgt_tpu_torch.scripts.pose2vid", "mmgt_tpu_torch.training.adan",
+       "mmgt_tpu_torch.training.stage2_image", "mmgt_tpu_torch.training.loop",
+       "mmgt_tpu_torch.utils.metrics", "mmgt_tpu_torch.utils.checkpoint",
+       "mmgt_tpu_torch.data.datasets", "mmgt_tpu_torch.data.mmr",
+       "mmgt_tpu_torch.scripts.train_stage2_image", "mmgt_tpu_torch.scripts.train_stage2",
+       "mmgt_tpu_torch.scripts.train_a2p"}
 assert new <= set(names), sorted(new - set(names))
 """
 
@@ -100,5 +105,23 @@ def test_new_entry_points_without_cuda_raise(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = {"pose2img": Pose2ImagePipeline.build, "lmks2vid": Lmks2VideoPipeline.build,
             "load_all_weights": lambda: load_all_weights("absent", None, None)}[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+
+
+@pytest.mark.parametrize("entry", ["image_trainer", "smga", "train_stage2_image",
+                                   "train_stage2", "train_a2p"])
+def test_training_entry_points_without_cuda_raise(monkeypatch, entry):
+    from mmgt_tpu_torch import config
+    from mmgt_tpu_torch.scripts import train_a2p, train_stage2, train_stage2_image
+    from mmgt_tpu_torch.training.stage1 import SMGA
+    from mmgt_tpu_torch.training.stage2_image import Stage2ImageTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = {"image_trainer": Stage2ImageTrainer.build, "smga": SMGA.build,
+            "train_stage2_image": lambda: train_stage2_image.build(
+                config.Stage2ImageTrainConfig(), tiny=True),
+            "train_stage2": lambda: train_stage2.build(config.Stage2TrainConfig()),
+            "train_a2p": lambda: train_a2p.build(config.Stage1TrainConfig())}[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()

@@ -9,7 +9,14 @@ import math
 
 import jax
 import numpy as np
+import pytest
 import torch
+# torch imports its compiler package lazily, on the first optimizer or
+# activation checkpoint; the reference-parity tests (test_dwpose_ref_parity.py,
+# test_rasterize_ref.py) leave a spec-less `onnxruntime` stub module in
+# sys.modules, which makes that late import fail in the same worker. Import
+# it while collecting, before any test runs.
+import torch._dynamo  # noqa: F401
 
 
 def noise_params(tree, seed: int = 0):
@@ -44,3 +51,15 @@ def t(x) -> torch.Tensor:
 def close(got, want, rtol, atol, msg=""):
     np.testing.assert_allclose(np.asarray(got, np.float64), np.asarray(want, np.float64),
                                rtol=rtol, atol=atol, err_msg=msg)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch's intra-op threads, off for the module that imports this: the
+    tests' tiny shapes gain nothing from them, and under the suite's
+    parallel workers they oversubscribe the cores (a tiny train step ran
+    20-200x slower so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
