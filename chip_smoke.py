@@ -84,8 +84,30 @@ Phases, in order; any failure exits non-zero:
      frames, K1-K4 launched; then the video and image training CLIs'
      `build` with the directory: their models equal to the loaded ones,
      a CLIP model returned.
-     Phases 8, 10, 11 and 12's CLI run record their launches and replay
-     each signature not replayed before, as 6 does;
+     The directory stays for 12b and 12c;
+ 12b. preprocess: the preprocessing path at the published widths, f32
+     with TF32 off: YOLOX-L and RTMPose-L (DW-LL) with seeded weights and
+     BN statistics (the objectness head damped, PRE_OBJ_BIAS) as
+     `DWPoseDetector.from_modules` over a PRE_FRAMES-frame 512^2 clip,
+     one frame at a time: (134, 3) finite keypoints a frame, ms a frame
+     for the detector, the pose net and the host pre/post, peak memory;
+     one frame on the card against the CPU (raw (1, 8400, 85) and SimCC
+     within PRE_REL_TOL of their largest |y|, the SimCC argmax equal
+     where its top-two margin exceeds that); both nets exported to ONNX
+     (torch's TorchScript exporter) into the weights directory's DWPose/,
+     run through the port's OnnxRunner against the modules (F32_REL_TOL)
+     and `DWPoseDetector.from_onnx` against the module-built detector,
+     and loaded back by `load_dwpose_weights` bitwise; a TFC-TDF
+     separator at Kim_Vocal_2's input geometry (1, 4, 3072, 256),
+     exported as the directory's Kim_Vocal_2.onnx, through
+     `MDXVocalSeparator` on a PRE_SEP_SECONDS clip, card against CPU;
+     `EmbeddingNet` at (80, 402), card against CPU; the prepare_stage1
+     CLI with the directory's WavLM checkpoint and prepare_stage2
+     --from_keypoints on PRE_CLIPS clips; none of K1-K5 launched;
+ 12c. verify_weights: the verify CLI with --forward on that directory:
+     all 13 entries [ok], 12 nets run on the card; then it is removed.
+     Phases 8, 10, 11, 12's CLI run and 12c record their launches and
+     replay each signature not replayed before, as 6 does;
  13. train: Stage2Trainer at full width, 512x512, 12 frames, batch 1,
      remat, TRAIN_STEPS steps on a seeded random batch: finite losses, the
      f32 masters of every trainable tensor moved, every frozen tensor
@@ -178,6 +200,24 @@ IMAGE_TRAIN_KERNELS = ("flash_attention", "group_norm", "ln_projections", "flash
 # the denoiser's 16 self-attentions (all trained) and 15 of the ReferenceNet's
 # 16 (its up_blocks.3.attentions.2 only feeds the discarded output sample)
 EXPECTED_K5_PER_IMAGE_STEP = 31
+# preprocessing: the DWPose clip (one frame at a time, as the reference runs
+# it), the prepare_stage2 clips, the separator's clip
+PRE_FRAMES = 16
+PRE_CLIPS = 3
+PRE_SEP_SECONDS = 4.0
+# the seeded YOLOX's objectness: random weights accept 500-1,700 boxes of
+# overflowing size a frame (one pose crop each); with the objectness
+# weights scaled by 1e-4 and the bias at -20 (-20.5, -21 on the coarser
+# levels) none passes and the pose net takes the full-frame box, one crop
+# a frame, as a one-speaker clip gives
+PRE_OBJ_BIAS = -20.0
+# f32 on the card (cuDNN's algorithms, TF32 off) against the CPU through
+# ~100 layers, relative to the largest output magnitude
+PRE_REL_TOL = 1e-3
+# from_onnx against the module-built detector, both on the card: keypoint
+# coordinates in pixels; 3 of 134 may differ more (a SimCC argmax between
+# bins equal to rounding may flip)
+PRE_KP_TOL = 1e-2
 # SMGA training at the reference's batch; the card-vs-CPU step on fewer rows
 A2P_BATCH = 128
 A2P_STEPS = 3
@@ -1428,7 +1468,9 @@ def run_weights(torch, ops, kernel_mods, tmp: str):
     from seeded port modules, loaded back by `load_all_weights` onto the
     card: every tensor equal to what was written, cast to its target
     dtype (wav2vec2 and WavLM: f32 modules holding bf16 values), no model
-    random-filled; then the pose2vid CLI's `run` on the loaded pipeline."""
+    random-filled; then the pose2vid CLI's `run` on the loaded pipeline.
+    The directory stays for the preprocess phase (its WavLM checkpoint)
+    and verify_weights, which removes it."""
     import argparse
     import shutil
 
@@ -1599,9 +1641,387 @@ def run_weights(torch, ops, kernel_mods, tmp: str):
             f"{', '.join(names)} equal to load_all_weights' and a CLIP model")
         del trainer, clip, got_sd
         torch.cuda.empty_cache()
-    shutil.rmtree(root)
     del pipe, smga
     torch.cuda.empty_cache()
+    return counts, calls
+
+
+# ----------------------------------------------------------- preprocessing
+def timed(fn, acc):
+    """fn with each call's host-clock seconds appended to acc (the nets'
+    wrappers copy their outputs to the host, which waits for the card)."""
+    def run(x):
+        t0 = time.perf_counter()
+        out = fn(x)
+        acc.append(time.perf_counter() - t0)
+        return out
+    return run
+
+
+def export_onnx(torch, model, example, path: str, inputs, outputs):
+    """torch's TorchScript ONNX exporter, without the `onnx` package (it
+    imports `onnx` only to add onnxscript functions, which a plain module
+    has none of), with constant folding and the eval-mode Conv+BN fusion
+    off so that every initializer keeps its module name."""
+    from torch.onnx._internal.torchscript_exporter import onnx_proto_utils
+
+    orig = onnx_proto_utils._add_onnxscript_fn
+    onnx_proto_utils._add_onnxscript_fn = lambda b, c: b
+    try:
+        torch.onnx.export(model, (example,), path, opset_version=13, dynamo=False,
+                          do_constant_folding=False, training=torch.onnx.TrainingMode.PRESERVE,
+                          input_names=list(inputs), output_names=list(outputs))
+    finally:
+        onnx_proto_utils._add_onnxscript_fn = orig
+
+
+def tfc_tdf_net(torch, dim_f: int, seed: int, g: int = 4, n: int = 2, k: int = 3, bn: int = 2):
+    """A TFC-TDF separator shaped like `tests/test_separator_mdx_arch.py`'s
+    MiniConvTDFNetTrim (the kuielab MDX-Net v2 architecture that
+    Kim_Vocal_2 belongs to): a 1x1 stem, n strided down/up scales with
+    BatchNorm, multiplicative skips, a TDF block (conv + GroupNorm + ReLU,
+    and a frequency-bottleneck MLP) at each scale, a 1x1 head back to 4
+    re/im channels; f32 on the CPU, seeded weights and BN statistics."""
+    nn = torch.nn
+
+    class ConvTDF(nn.Module):
+        def __init__(self, c, f):
+            super().__init__()
+            self.h = nn.Sequential(nn.Conv2d(c, c, k, padding=k // 2), nn.GroupNorm(2, c),
+                                   nn.ReLU())
+            self.tdf = nn.Sequential(nn.Linear(f, f // bn), nn.GroupNorm(2, c), nn.ReLU(),
+                                     nn.Linear(f // bn, f), nn.GroupNorm(2, c), nn.ReLU())
+
+        def forward(self, x):
+            x = self.h(x)
+            return x + self.tdf(x)
+
+    class Net(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.first_conv = nn.Sequential(nn.Conv2d(4, g, 1), nn.BatchNorm2d(g), nn.ReLU())
+            c, f = g, dim_f
+            self.ds_dense, self.ds = nn.ModuleList(), nn.ModuleList()
+            for _ in range(n):
+                self.ds_dense.append(ConvTDF(c, f))
+                self.ds.append(nn.Sequential(nn.Conv2d(c, c + g, 2, stride=2),
+                                             nn.BatchNorm2d(c + g), nn.ReLU()))
+                c, f = c + g, f // 2
+            self.mid_dense = ConvTDF(c, f)
+            self.us, self.us_dense = nn.ModuleList(), nn.ModuleList()
+            for _ in range(n):
+                self.us.append(nn.Sequential(nn.ConvTranspose2d(c, c - g, 2, stride=2),
+                                             nn.BatchNorm2d(c - g), nn.ReLU()))
+                c, f = c - g, f * 2
+                self.us_dense.append(ConvTDF(c, f))
+            self.final_conv = nn.Conv2d(c, 4, 1)
+
+        def forward(self, x):
+            x = self.first_conv(x).transpose(-1, -2)  # (B, C, T, F): the MLPs act on F
+            skips = []
+            for i in range(n):
+                x = self.ds_dense[i](x)
+                skips.append(x)
+                x = self.ds[i](x)
+            x = self.mid_dense(x)
+            for i in range(n):
+                x = self.us_dense[i](self.us[i](x) * skips[-i - 1])
+            return self.final_conv(x.transpose(-1, -2))
+
+    net = Net().eval().requires_grad_(False)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in net.modules():
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                fan_in = mod.weight[0].numel() if not isinstance(mod, nn.ConvTranspose2d) \
+                    else mod.weight.shape[0] * mod.weight[0, 0].numel()
+                mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen) / fan_in ** 0.5)
+                mod.bias.copy_(torch.randn(mod.bias.shape, generator=gen) * 0.1)
+            elif isinstance(mod, nn.BatchNorm2d):
+                mod.running_mean.copy_(torch.randn(mod.num_features, generator=gen) * 0.1)
+                mod.running_var.copy_(torch.rand(mod.num_features, generator=gen) + 0.5)
+    return net
+
+
+def simcc_agreement(simcc_a, simcc_b, tol: float):
+    """(equal, compared): SimCC argmaxes of two runs that agree, over the
+    rows whose top-two margin in b exceeds tol (elsewhere either argmax is
+    right within tol)."""
+    top2 = simcc_b.topk(2, dim=-1).values
+    settled = (top2[..., 0] - top2[..., 1]) > tol
+    same = simcc_a.argmax(-1) == simcc_b.argmax(-1)
+    return int((same & settled).sum()), int(settled.sum())
+
+
+def run_preprocess(torch, ops, tmp: str):
+    """The preprocessing path at the published widths on the card: DWPose
+    (YOLOX-L + RTMPose-L DW-LL, f32, TF32 off, seeded weights and BN
+    statistics) over a PRE_FRAMES-frame 512^2 clip one frame at a time;
+    one frame card against CPU; the nets exported to ONNX and run through
+    the port's OnnxRunner and DWPoseDetector.from_onnx against the modules,
+    and loaded back by load_dwpose_weights bitwise; a TFC-TDF separator at
+    Kim_Vocal_2's input geometry through MDXVocalSeparator, card against
+    CPU; EmbeddingNet card against CPU; the prepare_stage1 (WavLM from the
+    weights phase's checkpoint) and prepare_stage2 --from_keypoints CLIs.
+    None of K1-K5 may launch. The ONNX files land in the weights phase's
+    directory for verify_weights. Returns the phase's launches (none)."""
+    import copy
+
+    import numpy as np
+
+    from mmgt_tpu_torch.data import dwpose_infer as DI
+    from mmgt_tpu_torch.data.pose_init import default_skeleton
+    from mmgt_tpu_torch.data.separator import MDXVocalSeparator
+    from mmgt_tpu_torch.models.dwpose import RTMPose, YOLOXL
+    from mmgt_tpu_torch.models.motion_autoencoder import EmbeddingNet
+    from mmgt_tpu_torch.scripts import prepare_stage1, prepare_stage2
+    from mmgt_tpu_torch.utils.convert import load_dwpose_weights
+    from mmgt_tpu_torch.utils.media import save_video
+    from mmgt_tpu_torch.utils.onnx_exec import OnnxRunner
+
+    root = os.path.join(tmp, "preprocess")
+    weights = os.path.join(tmp, "weights")
+    os.makedirs(os.path.join(weights, "DWPose"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t_phase = time.perf_counter()
+
+    # ---- DWPose at the published widths, one frame at a time
+    t0 = time.perf_counter()
+    yolox, rtm = YOLOXL.build("cuda", SEED + 80), RTMPose.build("cuda", SEED + 81)
+    with torch.no_grad():
+        for i, conv in enumerate(yolox.bbox_head.multi_level_conv_obj):
+            conv.weight.mul_(1e-4)
+            conv.bias.fill_(PRE_OBJ_BIAS - 0.5 * i)  # distinct: the export keeps all three
+    det = DI.DWPoseDetector.from_modules(yolox, rtm)
+    acc = {"det": [], "pose": []}
+    det.det_fn, det.pose_fn = timed(det.det_fn, acc["det"]), timed(det.pose_fn, acc["pose"])
+    torch.cuda.synchronize()
+    log(f"preprocess: DWPose nets built in {time.perf_counter() - t0:.1f} s: YOLOX-L "
+        f"{sum(p.numel() for p in yolox.parameters())} and RTMPose-L "
+        f"{sum(p.numel() for p in rtm.parameters())} parameters")
+    rng = np.random.default_rng(SEED + 82)
+    yy, xx = np.mgrid[:SIZE, :SIZE] / SIZE
+    clip = []
+    for i in range(PRE_FRAMES):  # a moving bright blob on a gradient, plus noise
+        blob = np.exp(-((xx - 0.4 - 0.01 * i) ** 2 + (yy - 0.5) ** 2) / 0.02)
+        img = np.stack([yy, xx, blob], -1) * 200 + rng.uniform(0, 40, (SIZE, SIZE, 3))
+        clip.append(np.clip(img, 0, 255).astype(np.uint8))
+    totals, kps = [], []
+    for img in clip:
+        t0 = time.perf_counter()
+        kp = det(img)
+        totals.append(time.perf_counter() - t0)
+        require(kp.shape == (134, 3) and bool(np.isfinite(kp).all()),
+                f"preprocess: keypoints {kp.shape} not (134, 3) finite")
+        kps.append(kp)
+    steady = slice(1, None)
+    ms = {k: 1e3 * float(np.mean(v[steady])) for k, v in
+          (("frame", totals), ("det", acc["det"]), ("pose", acc["pose"]))}
+    ms["host"] = ms["frame"] - ms["det"] - ms["pose"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"preprocess: DWPoseDetector on {PRE_FRAMES} frames of {SIZE}^2, one at a time: first "
+        f"frame {1e3 * totals[0]:.1f} ms, then per frame {ms['frame']:.2f} ms: detector "
+        f"{ms['det']:.2f}, pose net {ms['pose']:.2f}, host pre/post {ms['host']:.2f}; "
+        f"{len(acc['pose']) // PRE_FRAMES} crop(s) a frame; max_memory_allocated {peak:.2f} GiB")
+
+    # ---- one frame, card against CPU
+    padded, ratio = DI.yolox_preprocess(clip[0])
+    x = torch.from_numpy(padded[None]).permute(0, 3, 1, 2).contiguous()
+    crop, _ = DI.crop_affine(clip[0], *DI.bbox_xyxy2cs(np.asarray([0, 0, SIZE, SIZE], np.float32)))
+    c = torch.from_numpy(((crop - DI.POSE_MEAN) / DI.POSE_STD)[None].astype(np.float32))
+    c = c.permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        raw_gpu, simcc_gpu = yolox(x.cuda()).cpu(), [s.cpu() for s in rtm(c.cuda())]
+        raw_cpu = copy.deepcopy(yolox).cpu()(x)
+        simcc_cpu = copy.deepcopy(rtm).cpu()(c)
+    for what, g, w in (("boxes", raw_gpu[..., :4], raw_cpu[..., :4]),
+                       ("scores", raw_gpu[..., 4:], raw_cpu[..., 4:]),
+                       ("simcc_x", simcc_gpu[0], simcc_cpu[0]),
+                       ("simcc_y", simcc_gpu[1], simcc_cpu[1])):
+        err, scale = max_err(g, w), w.abs().max().item()
+        require(bool(torch.isfinite(g).all()) and err <= PRE_REL_TOL * scale,
+                f"preprocess: card {what} off the CPU's by {err:.3e} (largest |y| {scale:.3e})")
+        log(f"preprocess: card vs CPU {what} {tuple(g.shape)}: max abs err {err:.3e}, "
+            f"{err / scale:.2e} of the largest |y| {scale:.3e} (tol {PRE_REL_TOL:g})")
+    for i, what in enumerate(("x", "y")):
+        tol = PRE_REL_TOL * simcc_cpu[i].abs().max().item()
+        same, settled = simcc_agreement(simcc_gpu[i], simcc_cpu[i], tol)
+        require(same == settled and settled >= 133 // 2,
+                f"preprocess: keypoint {what}: {same} of {settled} settled argmaxes agree")
+        log(f"preprocess: keypoint {what}: card argmax equal to the CPU's on {same} of the "
+            f"{settled} keypoints whose margin exceeds {tol:.3e}")
+
+    # ---- ONNX: export, the port's runner and from_onnx against the modules
+    t0 = time.perf_counter()
+    yp = os.path.join(weights, "DWPose", "yolox_l.onnx")
+    rp = os.path.join(weights, "DWPose", "dw-ll_ucoco_384.onnx")
+    export_onnx(torch, yolox, x.cuda(), yp, ["img"], ["dets"])
+    export_onnx(torch, rtm, c.cuda(), rp, ["crop"], ["simcc_x", "simcc_y"])
+    log(f"preprocess: YOLOX-L and RTMPose-L exported in {time.perf_counter() - t0:.1f} s "
+        f"({os.path.getsize(yp)} and {os.path.getsize(rp)} bytes)")
+    for path, model, inp, names in ((yp, yolox, x, ("dets",)),
+                                    (rp, rtm, c, ("simcc_x", "simcc_y"))):
+        runner = OnnxRunner.from_file(path, "cuda")
+        with torch.no_grad():
+            want = model(inp.cuda())
+        got = runner(inp.numpy())
+        want = want if isinstance(want, tuple) else (want,)
+        n_ms = time_ms(lambda: runner(inp.numpy()), iters=3, warmup=1)
+        m_ms = time_ms(lambda: model(inp.cuda()), iters=3, warmup=1)
+        for name, w in zip(names, want):
+            err, scale = max_err(got[name], w), w.abs().max().item()
+            require(err <= F32_REL_TOL * scale,
+                    f"preprocess: OnnxRunner {name} off the module by {err:.3e} ({scale:.3e})")
+            log(f"preprocess: OnnxRunner {os.path.basename(path)} {name} "
+                f"{tuple(got[name].shape)}: max abs err {err:.3e} against the module "
+                f"(largest |y| {scale:.3e}, tol {F32_REL_TOL:g})")
+        log(f"preprocess: {os.path.basename(path)}: {len(runner.nodes)} nodes, runner "
+            f"{n_ms:.2f} ms a call against the module's {m_ms:.2f} ms")
+        with torch.device("meta"):
+            fresh = type(model)()
+        fresh.to_empty(device="cuda")
+        rep = load_dwpose_weights(path, fresh)
+        sd = model.state_dict()
+        require(not rep["missing"] and not rep["unexpected"], f"preprocess: {rep}")
+        require(all(torch.equal(t, sd[k]) for k, t in fresh.state_dict().items()),
+                f"preprocess: load_dwpose_weights({os.path.basename(path)}) is not bitwise")
+        log(f"preprocess: load_dwpose_weights({os.path.basename(path)}): "
+            f"{len(sd)} tensors bitwise equal to the module's")
+        del runner, fresh
+    onnx_det = DI.DWPoseDetector.from_onnx(yp, rp, device="cuda")
+    t0 = time.perf_counter()
+    kp_onnx = onnx_det(clip[0])
+    sec_onnx = time.perf_counter() - t0
+    require(kp_onnx.shape == (134, 3), f"preprocess: from_onnx keypoints {kp_onnx.shape}")
+    n_close = int((np.abs(kp_onnx[:, :2] - kps[0][:, :2]).max(-1) <= PRE_KP_TOL).sum())
+    score_err = float(np.abs(kp_onnx[:, 2] - kps[0][:, 2]).max())
+    require(n_close >= 131 and score_err <= F32_REL_TOL * np.abs(kps[0][:, 2]).max(),
+            f"preprocess: from_onnx keypoints: {n_close} of 134 within {PRE_KP_TOL} px, "
+            f"scores off by {score_err:.3e}")
+    log(f"preprocess: DWPoseDetector.from_onnx on frame 0 in {1e3 * sec_onnx:.1f} ms: "
+        f"{n_close} of 134 keypoints within {PRE_KP_TOL:g} px of the module-built detector's, "
+        f"scores within {score_err:.3e}")
+    del det, onnx_det, yolox, rtm
+    torch.cuda.empty_cache()
+
+    # ---- the vocal separator at Kim_Vocal_2's input geometry
+    sep_path = os.path.join(weights, "Kim_Vocal_2.onnx")
+    net = tfc_tdf_net(torch, 3072, SEED + 83)
+    export_onnx(torch, net, torch.zeros(1, 4, 3072, 256), sep_path, ["spec"], ["out"])
+    wav = synth_speech(PRE_SEP_SECONDS, SEED + 84)
+    sep_gpu = MDXVocalSeparator(sep_path, device="cuda")
+    sep_gpu(wav)
+    t0 = time.perf_counter()
+    v_gpu = sep_gpu(wav)
+    sec_sep = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    v_cpu = MDXVocalSeparator(sep_path, device="cpu")(wav)
+    sec_cpu = time.perf_counter() - t0
+    err, scale = float(np.abs(v_gpu - v_cpu).max()), float(np.abs(v_cpu).max())
+    require(v_gpu.shape == wav.shape and bool(np.isfinite(v_gpu).all())
+            and err <= PRE_REL_TOL * scale, f"preprocess: separator off the CPU's by {err:.3e}")
+    log(f"preprocess: MDXVocalSeparator (TFC-TDF, (1, 4, 3072, 256) chunks, "
+        f"{sum(p.numel() for p in net.parameters())} parameters) on {PRE_SEP_SECONDS} s: "
+        f"{sec_sep:.3f} s on the card (second call), {sec_cpu:.3f} s on the CPU; max abs err "
+        f"{err:.3e} of the largest |y| {scale:.3e} (tol {PRE_REL_TOL:g})")
+
+    # ---- EmbeddingNet
+    emb = EmbeddingNet.build("cuda", SEED + 85)
+    poses = torch.randn(4, 80, 402, generator=torch.Generator().manual_seed(SEED + 86))
+    with torch.no_grad():
+        got = emb(poses.cuda())
+        want = copy.deepcopy(emb).cpu()(poses)
+    for what, g, w in zip(("recon", "mu", "logvar"), got, want):
+        err, scale = max_err(g.cpu(), w), w.abs().max().item()
+        require(err <= F32_REL_TOL * scale, f"preprocess: EmbeddingNet {what} off by {err:.3e}")
+    log(f"preprocess: EmbeddingNet (4, 80, 402) card against CPU: recon, mu, logvar within "
+        f"{F32_REL_TOL:g} of their largest |y|")
+
+    # ---- the dataset-prep CLIs
+    src1 = os.path.join(root, "stage1_src")
+    os.makedirs(os.path.join(src1, "wavs"))
+    os.makedirs(os.path.join(src1, "keypoints"))
+    from mmgt_tpu_torch.data.dsp import save_wav
+    for i in range(2):
+        save_wav(os.path.join(src1, "wavs", f"s{i}.wav"), synth_speech(7.0, SEED + 87 + i), A2V_SR)
+        kp = default_skeleton(SIZE, SIZE)[None] + rng.normal(0, 4, (175, 402))
+        np.save(os.path.join(src1, "keypoints", f"s{i}.npy"), kp.astype(np.float32))
+    out1 = os.path.join(root, "stage1_out")
+    t0 = time.perf_counter()
+    require(prepare_stage1.main(["--src", src1, "--out", out1, "--wavlm_ckpt",
+                                 os.path.join(weights, "wavlm", "WavLM-Large.pt")]) == 0,
+            "preprocess: prepare_stage1 failed")
+    sec1 = time.perf_counter() - t0
+    feats = sorted(os.listdir(os.path.join(out1, "wavlm_feats")))
+    require(len(feats) == 4, f"preprocess: prepare_stage1 wrote {feats}")
+    for f in feats:
+        w = np.load(os.path.join(out1, "wavlm_feats", f))
+        b = np.load(os.path.join(out1, "baseline_feats", f))
+        require(w.shape == (80, 1059) and bool(np.isfinite(w).all())
+                and np.array_equal(w[:, 1024:], b), f"preprocess: prepare_stage1 {f}")
+    log(f"preprocess: prepare_stage1 --wavlm_ckpt (WavLM Large from the weights phase's fp16 "
+        f"checkpoint, f32 on the card): 2 wavs of 7 s -> {len(feats)} clips of (80, 1059) in "
+        f"{sec1:.1f} s")
+    src2 = os.path.join(root, "stage2_src")
+    for d in ("videos", "keypoints", "audio_emb"):
+        os.makedirs(os.path.join(src2, d))
+    for i in range(PRE_CLIPS):
+        save_video(rng.integers(0, 255, (PRE_FRAMES, SIZE, SIZE, 3)).astype(np.uint8),
+                   os.path.join(src2, "videos", f"c{i}.mp4"))
+        kp = default_skeleton(SIZE, SIZE)[None] + rng.normal(0, 4, (PRE_FRAMES, 402))
+        np.save(os.path.join(src2, "keypoints", f"c{i}.npy"), kp.astype(np.float32))
+        np.save(os.path.join(src2, "audio_emb", f"c{i}.npy"),
+                rng.standard_normal((PRE_FRAMES, 12, 768)).astype(np.float32))
+    out2 = os.path.join(root, "stage2_out")
+    t0 = time.perf_counter()
+    require(prepare_stage2.main(["--src", src2, "--out", out2, "--from_keypoints"]) == 0,
+            "preprocess: prepare_stage2 failed")
+    sec2 = time.perf_counter() - t0
+    with open(os.path.join(out2, "meta.json")) as f:
+        recs = json.load(f)
+    require(len(recs) == PRE_CLIPS, f"preprocess: prepare_stage2 wrote {len(recs)} records")
+    rec = np.load(recs[0]["record"])
+    require(rec["pose"].shape == (PRE_FRAMES, SIZE, SIZE, 3) and rec["pose"].dtype == np.uint8
+            and rec["face_mask"].shape == (PRE_FRAMES, SIZE // 8, SIZE // 8)
+            and rec["pose"].max() > 0, "preprocess: prepare_stage2 record")
+    log(f"preprocess: prepare_stage2 --from_keypoints: {PRE_CLIPS} clips of {PRE_FRAMES} frames "
+        f"at {SIZE}^2 in {sec2:.1f} s")
+
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    require_launches("preprocess", counts, ())
+    log(f"preprocess: {time.perf_counter() - t_phase:.1f} s; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches " + json.dumps(counts))
+    import shutil
+    shutil.rmtree(root)
+    return counts, {}
+
+
+def run_verify_weights(torch, ops, kernel_mods, tmp: str):
+    """`python -m mmgt_tpu_torch.scripts.verify_weights` with --forward on
+    the weights phase's directory, which now also holds the preprocess
+    phase's DWPose and separator graphs: every entry [ok], every net run
+    on the card (the Stage-2 UNets at an 8x8 latent launch K1-K4); then
+    the directory is removed."""
+    import shutil
+
+    from mmgt_tpu_torch.scripts import verify_weights
+
+    weights = os.path.join(tmp, "weights")
+    report = os.path.join(tmp, "verify.json")
+    rc, counts, calls, sec, peak = record_call(torch, ops, kernel_mods, lambda: verify_weights.main(
+        [weights, "--forward", "--json", report]))
+    with open(report) as f:
+        rep = json.load(f)
+    entries = {k: v for k, v in rep.items() if k != "forward"}
+    require(rc == 0 and len(entries) == 13 and all(v.get("status") == "ok" for v in entries.values()),
+            "verify_weights: " + json.dumps({k: v.get("status") for k, v in entries.items()}))
+    require(len(rep["forward"]) == 12, f"verify_weights: forwarded {sorted(rep['forward'])}")
+    log(f"verify_weights: {len(entries)} entries ok, {len(rep['forward'])} nets run on the card, "
+        f"{sec:.1f} s, max_memory_allocated {peak:.2f} GiB; launches " + json.dumps(counts))
+    shutil.rmtree(weights)
     return counts, calls
 
 
@@ -2331,7 +2751,10 @@ def main(argv) -> int:
                              ("lmks2vid", lambda: run_lmks2vid(torch, ops, kernel_mods)),
                              ("lmks2vid_small",
                               lambda: run_lmks2vid_small(torch, Pose2VideoPipeline)),
-                             ("weights", lambda: run_weights(torch, ops, kernel_mods, tmp))):
+                             ("weights", lambda: run_weights(torch, ops, kernel_mods, tmp)),
+                             ("preprocess", lambda: run_preprocess(torch, ops, tmp)),
+                             ("verify_weights",
+                              lambda: run_verify_weights(torch, ops, kernel_mods, tmp))):
                 t0 = time.perf_counter()
                 got = run()
                 if got is not None:

@@ -1,8 +1,8 @@
 """Portrait -> initial 402-d keypoint vector (`mmgt_tpu/data/pose_init.py`).
 
 A deterministic default upper-body skeleton (a centred speaker pose), so
-the pipeline runs without detector weights; a DWPose detector may be
-passed in (the port has none yet).
+the pipeline runs without detector weights; a DWPose detector
+(`data/dwpose_infer.DWPoseDetector`) may be passed in.
 """
 from __future__ import annotations
 
@@ -56,8 +56,11 @@ def default_skeleton(height: int = 512, width: int = 512) -> np.ndarray:
 
 def portrait_keypoints(image01: np.ndarray, height: int = 512, width: int = 512,
                        detector=None) -> np.ndarray:
-    """(H, W, 3) image -> (402,) keypoints; uses the detector when provided,
+    """(H, W, 3) image -> (402,) keypoints; uses the detector when provided
+    (a `DWPoseDetector` takes the image as uint8 RGB and gives (134, 3),
+    flattened here: the JAX package passes the (134, 3) on and raises),
     else the default skeleton. Legs are always masked
     (audio2vid.py:319-321)."""
-    kp = detector(image01) if detector is not None else default_skeleton(height, width)
+    kp = (np.asarray(detector(image01)).reshape(-1) if detector is not None
+          else default_skeleton(height, width))
     return mask_leg(torch.from_numpy(np.asarray(kp, np.float32))[None])[0].numpy()

@@ -12,11 +12,13 @@ flax leaf whose name the mapper translates to that key, using this
 module's copies of `mmgt_tpu.utils.convert.map_unet3d`, `map_unet2d`,
 `map_vae`, `map_pose_guider`, `map_audio_proj` (`PIPELINE_MAPPERS`) and
 `map_clip_vision`, `map_wav2vec2`, `map_wavlm`, `map_smga`
-(`ENCODER_MAPPERS`), and inverts the converter's layout change
+(`ENCODER_MAPPERS`), `map_yolox`, `map_rtmpose` (`DWPOSE_MAPPERS`; their
+BatchNorm statistics from the "batch_stats" collection), and inverts the converter's layout change
 (`to_flax_tensor`): Dense (in, out) -> (out, in), Conv (kh, kw, in, out)
 -> (out, in, kh, kw), Conv1d (k, in/groups, out) -> (out, in/groups, k).
 A port key with no flax leaf, or a flax leaf that no port key takes,
-raises.
+raises. `load_dwpose_weights` fills the DWPose nets from their .onnx
+files by the initializers' names.
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ from typing import Any, Callable, Dict, Iterator, List, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from mmgt_tpu_torch.utils.onnx_reader import load_onnx
 
 
 # --------------------------------------------------------- name translation
@@ -285,6 +289,110 @@ ENCODER_MAPPERS: Dict[str, Callable[[str], str]] = {
 }
 
 
+# ------------------------------------------------------- DWPose (ONNX nets)
+def _dwpose_leaf(key: str) -> Tuple[str, str]:
+    """Split key into (path, torch leaf) with BatchNorm-stat awareness.
+
+    flax ConvBnAct stores conv/kernel + bn/{scale,bias} in params and
+    bn/{mean,var} in batch_stats — torch ConvModule uses .conv.weight,
+    .bn.{weight,bias,running_mean,running_var}."""
+    key = key.replace("batch_stats/", "", 1) if key.startswith("batch_stats/") else key
+    path, leaf = key.rsplit("/", 1) if "/" in key else ("", key)
+    leaf = {
+        "kernel": "weight", "scale": "weight",
+        "mean": "running_mean", "var": "running_var",
+    }.get(leaf, leaf)
+    return path, leaf
+
+
+def _map_csp_inner(s: str) -> str:
+    """CSPLayer/CSPNeXt internals: our names -> mmdet/mmpose names."""
+    s = re.sub(r"/main(/|$)", r"/main_conv\1", s)
+    s = re.sub(r"/short(/|$)", r"/short_conv\1", s)
+    s = re.sub(r"/final(/|$)", r"/final_conv\1", s)
+    s = re.sub(r"/block_(\d+)", r"/blocks.\1", s)
+    s = re.sub(r"/attn/fc", "/attention.fc", s)
+    s = re.sub(r"/dw(/|$)", r"/conv2.depthwise_conv\1", s)
+    s = re.sub(r"/pw(/|$)", r"/conv2.pointwise_conv\1", s)
+    return s
+
+
+def map_yolox(key: str) -> str:
+    """our YOLOXL (models/dwpose.py) -> mmdet YOLOX state-dict keys, the
+    naming the reference's yolox_l.onnx initializers carry (mmdeploy export
+    of mmdet YOLOX-L; reference runs it via onnxruntime,
+    src/dwpose/wholebody.py:14-27)."""
+    path, leaf = _dwpose_leaf(key)
+    s = "/" + path
+    # backbone: our dark{n}_* -> mmdet stage{n-1}.{idx}
+    s = re.sub(r"/backbone/stem/conv", "/backbone.stem.conv", s)
+    for n in (2, 3, 4):
+        s = s.replace(f"/backbone/dark{n}_conv", f"/backbone.stage{n - 1}.0")
+        s = s.replace(f"/backbone/dark{n}_csp", f"/backbone.stage{n - 1}.1")
+    s = s.replace("/backbone/dark5_conv", "/backbone.stage4.0")
+    s = s.replace("/backbone/dark5_spp", "/backbone.stage4.1")
+    s = s.replace("/backbone/dark5_csp", "/backbone.stage4.2")
+    # PAFPN neck
+    s = s.replace("/lateral5", "/neck.reduce_layers.0")
+    s = s.replace("/lateral4", "/neck.reduce_layers.1")
+    s = s.replace("/fpn_c4", "/neck.top_down_blocks.0")
+    s = s.replace("/fpn_c3", "/neck.top_down_blocks.1")
+    s = s.replace("/down3", "/neck.downsamples.0")
+    s = s.replace("/down4", "/neck.downsamples.1")
+    s = s.replace("/pan_c4", "/neck.bottom_up_blocks.0")
+    s = s.replace("/pan_c5", "/neck.bottom_up_blocks.1")
+    s = re.sub(r"/head_stem_(\d+)", r"/neck.out_convs.\1", s)
+    # decoupled head
+    s = re.sub(r"/head_cls(\d)_(\d+)", r"/bbox_head.multi_level_cls_convs.\2.\1", s)
+    s = re.sub(r"/head_reg(\d)_(\d+)", r"/bbox_head.multi_level_reg_convs.\2.\1", s)
+    s = re.sub(r"/cls_pred_(\d+)", r"/bbox_head.multi_level_conv_cls.\1", s)
+    s = re.sub(r"/reg_pred_(\d+)", r"/bbox_head.multi_level_conv_reg.\1", s)
+    s = re.sub(r"/obj_pred_(\d+)", r"/bbox_head.multi_level_conv_obj.\1", s)
+    s = _map_csp_inner(s)
+    return f"{s[1:].replace('/', '.')}.{leaf}"
+
+
+def map_rtmpose(key: str) -> str:
+    """our RTMPose (models/dwpose.py) -> mmpose RTMPose-L state-dict keys,
+    the naming the reference's dw-ll_ucoco_384.onnx initializers carry."""
+    # bare params of the RTMCC head
+    if key.endswith("gau/gamma") or key.endswith("gau/beta"):
+        return f"head.gau.{key.rsplit('/', 1)[-1]}"
+    if key.endswith("gau/res_scale"):
+        return "head.gau.res_scale.scale"
+    path, leaf = _dwpose_leaf(key)
+    s = "/" + path
+    s = re.sub(r"/stem(\d)", r"/backbone.stem.\1", s)
+    s = re.sub(r"/stage(\d)_down", lambda m: f"/backbone.stage{int(m.group(1)) + 1}.0", s)
+    s = s.replace("/stage3_spp", "/backbone.stage4.1")
+    s = s.replace("/stage3_csp", "/backbone.stage4.2")
+    s = re.sub(r"/stage(\d)_csp", lambda m: f"/backbone.stage{int(m.group(1)) + 1}.1", s)
+    s = s.replace("/final_layer", "/head.final_layer")
+    s = s.replace("/mlp_norm", "/head.mlp.0")
+    s = s.replace("/mlp", "/head.mlp.1")  # mlp_norm already rewritten above
+    s = s.replace("/gau/ln", "/head.gau.ln")
+    s = s.replace("/gau/uv", "/head.gau.uv")
+    s = s.replace("/gau/out", "/head.gau.o")
+    s = s.replace("/cls_x", "/head.cls_x")
+    s = s.replace("/cls_y", "/head.cls_y")
+    s = _map_csp_inner(s)
+    return f"{s[1:].replace('/', '.')}.{leaf}"
+
+
+# the preprocessing nets (mmdet YOLOX-L, mmpose RTMPose-L DW-LL)
+DWPOSE_MAPPERS: Dict[str, Callable[[str], str]] = {
+    "yolox": map_yolox,
+    "rtmpose": map_rtmpose,
+}
+
+
+def map_flax(key: str) -> str:
+    """A module whose port names are its flax names with dots
+    (`models/motion_autoencoder.py`, which no reference checkpoint names)."""
+    path, leaf = _leaf(key)
+    return f"{path.replace('/', '.')}.{leaf}"
+
+
 # ------------------------------------------------------------------- loading
 def _flatten(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, Any]]:
     for k, v in tree.items():
@@ -313,10 +421,15 @@ def from_flax_tensor(flax_key: str, arr, shape) -> np.ndarray:
 def load_jax_params(module: nn.Module, flax_tree: Mapping,
                     mapper: Callable[[str], str]) -> nn.Module:
     """Copy a flax param tree (numpy leaves, with or without the top-level
-    "params" collection) into `module`, in place; returns the module."""
+    "params" collection) into `module`, in place; returns the module. A
+    "batch_stats" collection beside "params" (BatchNorm running mean/var)
+    crosses too, its keys prefixed "batch_stats/" for the mapper."""
     tree = flax_tree["params"] if "params" in flax_tree else flax_tree
+    leaves = list(_flatten(tree))
+    if "batch_stats" in flax_tree:
+        leaves += list(_flatten(flax_tree["batch_stats"], "batch_stats/"))
     by_key: Dict[str, Tuple[str, Any]] = {}
-    for flax_key, arr in _flatten(tree):
+    for flax_key, arr in leaves:
         torch_key = mapper(flax_key)
         if torch_key in by_key:
             raise KeyError(f"{flax_key} and {by_key[torch_key][0]} both map to {torch_key}")
@@ -522,3 +635,16 @@ def load_checkpoint(module: nn.Module, state_dicts: Sequence[Mapping[str, torch.
         for k, src in srcs.items():
             target[k].copy_(src if value_dtype is None else src.to(value_dtype))
     return {"missing": missing, "unexpected": [k for k in merged if k not in target]}
+
+
+def load_dwpose_weights(onnx_path: str, module: nn.Module) -> Dict[str, List[str]]:
+    """Fill a `models.dwpose` YOLOXL / RTMPose in place from a DWPose .onnx
+    file (`mmgt_tpu.utils.convert.load_dwpose_weights`): the initializers,
+    read by the port's protobuf wire parser (`utils/onnx_reader.py`), with
+    the exporters' `model.` / `module.` prefixes stripped, load by the
+    module's own (mmdet / mmpose) keys under `load_checkpoint`'s strict
+    rules. Returns the report (KeyError when a module key is absent)."""
+    inits, _nodes = load_onnx(onnx_path)
+    sd = {re.sub(r"^(model|module)\.", "", k): torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in inits.items()}
+    return load_checkpoint(module, [sd])

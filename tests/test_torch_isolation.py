@@ -42,7 +42,11 @@ new = {"mmgt_tpu_torch.config", "mmgt_tpu_torch.data.dsp", "mmgt_tpu_torch.data.
        "mmgt_tpu_torch.utils.metrics", "mmgt_tpu_torch.utils.checkpoint",
        "mmgt_tpu_torch.data.datasets", "mmgt_tpu_torch.data.mmr",
        "mmgt_tpu_torch.scripts.train_stage2_image", "mmgt_tpu_torch.scripts.train_stage2",
-       "mmgt_tpu_torch.scripts.train_a2p"}
+       "mmgt_tpu_torch.scripts.train_a2p", "mmgt_tpu_torch.utils.onnx_reader",
+       "mmgt_tpu_torch.utils.onnx_exec", "mmgt_tpu_torch.data.separator",
+       "mmgt_tpu_torch.models.dwpose", "mmgt_tpu_torch.data.dwpose_infer",
+       "mmgt_tpu_torch.models.motion_autoencoder", "mmgt_tpu_torch.scripts.prepare_stage1",
+       "mmgt_tpu_torch.scripts.prepare_stage2", "mmgt_tpu_torch.scripts.verify_weights"}
 assert new <= set(names), sorted(new - set(names))
 """
 
@@ -123,5 +127,31 @@ def test_training_entry_points_without_cuda_raise(monkeypatch, entry):
                 config.Stage2ImageTrainConfig(), tiny=True),
             "train_stage2": lambda: train_stage2.build(config.Stage2TrainConfig()),
             "train_a2p": lambda: train_a2p.build(config.Stage1TrainConfig())}[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+
+
+@pytest.mark.parametrize("entry", ["yolox", "rtmpose", "dwpose_from_onnx",
+                                   "onnx_runner", "separator", "embedding_net",
+                                   "prepare_stage1", "prepare_stage2", "verify_weights"])
+def test_preprocessing_entry_points_without_cuda_raise(monkeypatch, tmp_path, entry):
+    from mmgt_tpu_torch.data.dwpose_infer import DWPoseDetector
+    from mmgt_tpu_torch.data.separator import MDXVocalSeparator
+    from mmgt_tpu_torch.models.dwpose import RTMPose, YOLOXL
+    from mmgt_tpu_torch.models.motion_autoencoder import EmbeddingNet
+    from mmgt_tpu_torch.scripts import prepare_stage1, prepare_stage2, verify_weights
+    from mmgt_tpu_torch.utils.onnx_exec import OnnxRunner
+
+    graph = tmp_path / "empty.onnx"
+    graph.write_bytes(b"\x3a\x00")  # a ModelProto whose graph (field 7) is empty
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = {"yolox": YOLOXL.build, "rtmpose": RTMPose.build,
+            "dwpose_from_onnx": lambda: DWPoseDetector.from_onnx(str(graph), str(graph)),
+            "onnx_runner": lambda: OnnxRunner.from_file(str(graph)),
+            "separator": lambda: MDXVocalSeparator(str(graph)),
+            "embedding_net": EmbeddingNet.build,
+            "prepare_stage1": lambda: prepare_stage1.build(None),
+            "prepare_stage2": lambda: prepare_stage2.run(str(tmp_path), str(tmp_path / "out")),
+            "verify_weights": lambda: verify_weights.main([str(tmp_path)])}[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()

@@ -382,3 +382,28 @@ def test_motion_attention_function_grads(gen):
                  lambda x, g, b, wq, wk, wv, wo, bo: M.motion_attention_plain(
                      x, g, b, pe, wq, wk, wv, wo, bo, 8), inputs, gen)
     assert ops.launch_counts()["motion_attention"] == 1
+
+
+def test_onnx_runner_on_the_card_matches_the_cpu(gen, tmp_path):
+    """The port's OnnxRunner (no kernel of its own: cuDNN and cuBLAS in f32,
+    TF32 off) on the exported miniature TFC-TDF separator graph, card
+    against CPU, within 1e-4 of the largest |output|; none of K1-K5."""
+    import numpy as np
+
+    from test_separator_mdx_arch import MiniConvTDFNetTrim, _export_onnx
+
+    from mmgt_tpu_torch.device import disable_tf32
+    from mmgt_tpu_torch.utils.onnx_exec import OnnxRunner
+
+    disable_tf32()
+    torch.manual_seed(0)
+    path = str(tmp_path / "mini_tfc_tdf.onnx")
+    _export_onnx(MiniConvTDFNetTrim(dim_f=64).eval(), torch.randn(1, 4, 64, 32), path)
+    x = np.random.default_rng(0).standard_normal((1, 4, 64, 32)).astype(np.float32)
+    ops.reset_launch_counts()
+    (got,) = OnnxRunner.from_file(path, "cuda")(x).values()
+    (want,) = OnnxRunner.from_file(path, "cpu")(x).values()
+    assert got.device.type == "cuda" and want.device.type == "cpu"
+    err = (got.cpu() - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+    assert not any(ops.launch_counts().values())
