@@ -141,6 +141,31 @@ Phases, in order; any failure exits non-zero:
      kernel launched (its attention is 80 tokens, plain math); then one
      more step on the card against the same step on the CPU in f32
      (A2P_LOSS_TOL, A2P_GRAD_TOL).
+ 18. mesh: the distributed layer (`mmgt_tpu_torch/parallel/`) on the one
+     card. Single-process references first: main's pipeline call, the same
+     call at one window a UNet call, and one full-width video train step
+     (12 frames, batch 1, remat). Then MESH_WORLD (2) ranks spawned on
+     cuda:0, gloo over CUDA tensors, a `file://` store in the temporary
+     directory: main's pipeline call at (dp = 2, tp = 1), the windows split
+     over the ranks, and at (dp = 1, tp = 2), K1/K3/K4 on 4 local heads;
+     the frames of every rank within max(MESH_FRAME_FLOOR, 1.5 x the
+     difference of the single-process runs at 2 and at 1 window a call)
+     (mean |diff|) of the single-process frames, dp = 2's also of the
+     one-window run, and bitwise equal across ranks; the latents after
+     the first step likewise, within MESH_LATENT_FACTOR x that
+     difference there; the small pipeline
+     of 5 on each mesh, within SMALL_ERR_FACTOR x the plain bf16 error of
+     the CPU f32 reference; then the train
+     step at (dp = 1, tp = 2), K5 on the local heads: the loss within
+     MESH_LOSS_RTOL, the clipped gradients within MESH_GRAD_RTOL (relative
+     L2), every f32 master within MESH_MASTER_LR x lr of the single-process
+     step. Each part's launches (counts set to 0 just
+     before, read just after), seconds, peak memory per rank and
+     all_reduce calls, bytes and seconds (through the host: nothing of
+     NCCL between cards); every launch signature replayed as in 6. Then
+     the video CLI's main at world 1 as torchrun starts it: an NCCL
+     process group, one full-width step and its checkpoint. A failing
+     rank fails the phase.
 Launch signatures are recorded by wrapping each kernel module's launch
 function, K5's `_launch_bwd` included; a K5 signature is replayed with
 o and lse from the plain forward on its seeded inputs, at 4 bf16 ulps.
@@ -153,6 +178,10 @@ profiles one full-width denoise step, one full-width train step, one
 image-pretrain step and one SMGA step instead (device time by kernel family, idle share, and the GroupNorm
 calls of each step with K2's plans and their bytes bound) and prints no
 `kernels` line.
+
+    python3 chip_smoke.py mesh       # build, then phase 18 alone
+
+runs the mesh phase and its replays only, and prints no `kernels` line.
 This script imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -316,6 +345,11 @@ def check_k1(torch, A):
          True, "train_image L0 concat + lse"),
         ("train_image ReferenceNet self + lse", 4, 1024, 1024, 8, 40, False, None, True,
          "train_image ReferenceNet self + lse"),
+        # tensor parallelism, tp = 2: each rank's 4 of the 8 heads (the mesh phase)
+        ("tp2 L0 bank mixed kv_lens, 4 heads", 2, 4096, 4096, 4, 40, True, [4096, 8192], False,
+         "tp2 L0 bank (4 heads)"),
+        ("tp2 L0 concat + lse (training), 4 heads", 2, 4096, 8192, 4, 40, False, [4096, 8192],
+         True, "tp2 L0 concat + lse (4 heads)"),
     ]
     tol_lse = 1e-3
     rec, rows = None, {}
@@ -458,6 +492,11 @@ def check_k3(torch, L):
         ("L2 3 audio q", 24, 256, 1280, [1280, 1280, 1280], False),
         ("pose2img L0 q/k/v (2 rows)", 2, 4096, 320, [320, 320, 320], False),
         ("train_image L0 q/k/v (4 rows)", 4, 1024, 320, [320, 320, 320], False),
+        # the tp shards: q/k/v at tp = 2 and 4 (80 columns: a partial tile),
+        # the GEGLU half-pairs at tp = 2
+        ("tp2 L0 q/k/v (48 rows)", 48, 4096, 320, [160, 160, 160], False),
+        ("tp4 L0 q/k/v (48 rows)", 48, 4096, 320, [80, 80, 80], False),
+        ("tp2 L0 GEGLU half-pairs", 48, 4096, 320, [1280], True),
     ]:
         x = torch.randn(nrow, l, c, generator=g, device=dev).to(torch.bfloat16)
         gam = (1 + 0.1 * torch.randn(c, generator=g, device=dev)).to(torch.bfloat16)
@@ -496,17 +535,25 @@ def check_k4(torch, M):
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     rec, rows = None, {}
-    for name, shape in [("L0 (4 rows)", (4, 12, 4096, 320)), ("L1", (4, 12, 1024, 640)),
-                        ("L3 / mid, 64 tokens", (4, 12, 64, 1280))]:
+    # (name, shape, heads, tp): at tp > 1 a rank's head shard, q/k/v
+    # (C / tp, C), W_o (C, C / tp), no residual and no bias
+    for name, shape, heads, tp in [("L0 (4 rows)", (4, 12, 4096, 320), 8, 1),
+                                   ("L1", (4, 12, 1024, 640), 8, 1),
+                                   ("L3 / mid, 64 tokens", (4, 12, 64, 1280), 8, 1),
+                                   ("tp2 L0, 4 local heads", (4, 12, 4096, 320), 4, 2)]:
         b, f, l, c = shape
+        inner = c // tp
         x = torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
         gam = (1 + 0.1 * torch.randn(c, generator=g, device=dev)).to(torch.bfloat16)
         bet = (0.1 * torch.randn(c, generator=g, device=dev)).to(torch.bfloat16)
         pe = M.sinusoidal_positions(32, c, dev)[:f]
-        ws = [(torch.randn(c, c, generator=g, device=dev) / math.sqrt(c)).to(torch.bfloat16)
-              for _ in range(4)]
+        ws = [(torch.randn(inner, c, generator=g, device=dev) / math.sqrt(c)).to(torch.bfloat16)
+              for _ in range(3)]
+        ws.append((torch.randn(c, inner, generator=g, device=dev) / math.sqrt(inner))
+                  .to(torch.bfloat16))
         bo = (0.1 * torch.randn(c, generator=g, device=dev)).to(torch.bfloat16)
-        args = (x, gam, bet, pe, *ws, bo, 8, 1e-5)
+        args = (x, gam, bet, pe, *ws, bo, heads, 1e-5) if tp == 1 else \
+            (x, gam, bet, pe, *ws, None, heads, 1e-5, False)
         got = M.motion_attention(*args)
         want = M.motion_attention_plain(*args)
         err, tol = max_err(got, want), ulp_tol(want)
@@ -515,8 +562,11 @@ def check_k4(torch, M):
         m = b * f * l
         row = time_row(lambda: M.motion_attention(*args),
                        lambda: M.motion_attention_plain(*args), None,
-                       2.0 * m * c * c * 4 + 4.0 * b * l * f * f * c,
-                       nbytes(x, gam, bet, pe, *ws, bo, got), f"{name}: x {shape}, 8 heads")
+                       2.0 * m * c * inner * 4 + 4.0 * b * l * f * f * inner,
+                       nbytes(x, gam, bet, pe, *ws, bo if tp == 1 else None, got),
+                       f"{name}: x {shape}, {heads} heads" + (
+                           "" if tp == 1 else f" (W_q/k/v {(inner, c)}, W_o {(c, inner)}, "
+                                              "no residual)"))
         row["max_abs_err"] = err
         rows[name] = row
         if rec is None:
@@ -548,6 +598,7 @@ def check_k5(torch, A):
         ("L0 audio self-attention", 2, 4096, 4096, 8, 40, None, True),
         ("train_image L0 concat", 4, 1024, 2048, 8, 40, [1024, 2048, 2048, 2048], True),
         ("train_image ReferenceNet self-attention", 4, 1024, 1024, 8, 40, None, True),
+        ("tp2 L0 bank concat, 4 heads", 2, 4096, 8192, 4, 40, [4096, 8192], True),
     ]:
         q, k, v, do = rnd(b, sq, h, d), rnd(b, skv, h, d), rnd(b, skv, h, d), rnd(b, sq, h, d)
         kl = torch.tensor(lens, dtype=torch.int32, device=dev) if lens else None
@@ -778,11 +829,31 @@ PROFILE_FAMILIES = (
 )
 
 
-def run_small(torch, Pose2VideoPipeline):
-    """Tiny pipeline: card (bf16, kernels) vs CPU (f32, plain versions)."""
+def small_run(torch, pipe, dev):
+    """The small pipeline's run (64x64, 8 frames, windows of 6 overlapping
+    by 2, 2 DDIM steps, CFG) from fixed inputs and noise: (latents, frames)
+    on the CPU in f32."""
     from mmgt_tpu_torch.diffusion.solver import init_solver_carry, solver_tables_for
     from mmgt_tpu_torch.pipelines.context import compute_context_schedule
 
+    frames, size, steps = 8, 64, 2
+    inputs = make_inputs(torch, frames, size, SEED + 7)
+    g = torch.Generator().manual_seed(SEED + 8)
+    lat0 = torch.randn(frames, size // 8, size // 8, 4, generator=g)
+    tables = solver_tables_for(pipe.scheduler, steps)
+    win = compute_context_schedule(steps, frames, 6, 1, 2)
+    d = {k: v.to(dev) for k, v in inputs.items() if k != "masks"}
+    d["masks"] = tuple(tuple(m.to(dev) for m in lv) for lv in inputs["masks"])
+    with torch.no_grad():
+        cond, _ = pipe._prepare(**d)
+        lat = lat0.to(dev)
+        lat, _ = pipe._denoise_chunk(lat, init_solver_carry(lat), cond, tables, win,
+                                     GUIDANCE, (1.0, 1.0, 1.0))
+        return lat.float().cpu(), pipe._decode(lat).float().cpu()
+
+
+def run_small(torch, Pose2VideoPipeline):
+    """Tiny pipeline: card (bf16, kernels) vs CPU (f32, plain versions)."""
     tiny = lambda dev, dtype: tiny_pipeline(torch, Pose2VideoPipeline, dev, dtype)
     ref = tiny("cpu", torch.float32)
     runs = {"cpu_f32": (ref, "cpu"), "cpu_bf16": (tiny("cpu", torch.bfloat16), "cpu"),
@@ -791,21 +862,7 @@ def run_small(torch, Pose2VideoPipeline):
         if pipe is not ref:
             for name, m in ref.models().items():
                 getattr(pipe, name).load_state_dict(m.state_dict())
-    frames, size, steps = 8, 64, 2
-    inputs = make_inputs(torch, frames, size, SEED + 7)
-    g = torch.Generator().manual_seed(SEED + 8)
-    lat0 = torch.randn(frames, size // 8, size // 8, 4, generator=g)
-    tables = solver_tables_for(ref.scheduler, steps)
-    win = compute_context_schedule(steps, frames, 6, 1, 2)
-    outs = {}
-    for tag, (pipe, dev) in runs.items():
-        d = {k: v.to(dev) for k, v in inputs.items() if k != "masks"}
-        d["masks"] = tuple(tuple(m.to(dev) for m in lv) for lv in inputs["masks"])
-        cond, _ = pipe._prepare(**d)
-        lat = lat0.to(dev)
-        lat, _ = pipe._denoise_chunk(lat, init_solver_carry(lat), cond, tables, win,
-                                     GUIDANCE, (1.0, 1.0, 1.0))
-        outs[tag] = (lat.float().cpu(), pipe._decode(lat).float().cpu())
+    outs = {tag: small_run(torch, pipe, dev) for tag, (pipe, dev) in runs.items()}
     errs = {}
     for tag in ("cpu_bf16", "card_bf16"):
         errs[tag] = [(outs[tag][i] - outs["cpu_f32"][i]).abs().mean().item() for i in (0, 1)]
@@ -1100,21 +1157,23 @@ def replay_call(torch, kern, sig, lens, make, picks, tol_for, A, N, L, M, tag):
                 + " (4 bf16 ulps)")
         inputs = (q, k, v, o, do, lse)
     else:
-        xd, gd, btd, ped, *wd, bod, heads, eps = sig
+        xd, gd, btd, ped, *wd, bod, heads, eps, residual = sig
         x = make(xd)
         b, f, l, c = x.shape
+        inner = wd[0][1][0]   # q/k/v rows: C, or a head shard's H_local d
         args = (x, make(gd, 0.1, 1.0), make(btd, 0.1), make(ped),
-                *(make(d_, 1 / math.sqrt(c)) for d_ in wd), make(bod, 0.1),
-                heads[1], eps[1])
+                *(make(d_, 1 / math.sqrt(c)) for d_ in wd[:3]), make(wd[3], 1 / math.sqrt(inner)),
+                make(bod, 0.1), heads[1], eps[1], residual[1])
         fn = lambda: M.motion_attention(*args)
         got = fn()
         err, tol = 0.0, 0.0
         for i in picks(b):
             want = M.motion_attention_plain(x[i:i + 1], *args[1:])
             err, tol = max(err, max_err(got[i:i + 1], want)), max(tol, ulp_tol(want))
-        flops = 2.0 * b * f * l * c * c * 4 + 4.0 * b * l * f * f * c
+        flops = 2.0 * b * f * l * c * inner * 4 + 4.0 * b * l * f * f * inner
         nb = nbytes(*args[:9], got)
-        what = f"x {tuple(x.shape)}, {heads[1]} heads"
+        what = f"x {tuple(x.shape)}, {heads[1]} heads" + (
+            "" if inner == c else f" of a head shard (inner {inner}, no residual)")
         inputs = args[:9]
     require(math.isfinite(err) and err <= tol,
             f"{tag} {kern} at {what}: err {err} > {tol}")
@@ -2665,6 +2724,343 @@ def report_k2_calls(torch, step):
                                  "bound_ms": moved / PEAK_BYTES * 1e3, "plans": regimes}}))
 
 
+# ------------------------------------------------------------------- mesh
+MESH_WORLD = 2           # ranks of the mesh phase, all on cuda:0
+MESH_TIMEOUT_S = 600     # a collective that waits longer raises
+# The frames of a mesh run against the single-process run's, mean |diff|:
+# at most SMALL_ERR_FACTOR x what two single-process runs of the same call
+# differ by when only the windows' grouping into UNet calls changes (2 or
+# 1 windows a call: the same math, rounded to bf16 in other places), and
+# never less than one level of the 8-bit video. tp = 2 only rounds each
+# row-parallel partial sum once more; dp = 2 runs one window a call on
+# each rank. With seeded random weights at full width, 3 steps at guidance
+# 3.5 carry bf16 rounding to ~1e-2 of the frames (the tiny three-way check,
+# run on each mesh too, holds the card to the CPU f32 reference).
+MESH_FRAME_FLOOR = 1.0 / 255
+# The latents after the first denoising step of main's call (before the
+# later steps at guidance 3.5 carry bf16 rounding across the frames), mean
+# |diff| against the single-process run's: at most MESH_LATENT_FACTOR x
+# what the single-process runs at 2 and at 1 window a call differ by there.
+# On the H100 a sound tp = 2 reads 1.30x; a row-parallel bias added on
+# every rank before the reduce reads 3.29x (PERF.md).
+MESH_LATENT_FACTOR = 1.5
+# The tp = 2 train step against the single-process step. The loss within
+# MESH_LOSS_RTOL (sound 1.2e-4; the doubled row bias 2.9e-3). The
+# clipped gradients within MESH_GRAD_RTOL in relative L2 norm over each
+# rank's elements, read from AdamW's first moment, which after one step is
+# 0.1 x the clipped gradient (sound 4.5e-3; the doubled row bias 0.13;
+# `copy_to_tp` without its backward all_reduce 0.72). A first step moves
+# every weight by about lr whatever its gradient, so the masters cannot
+# tell a wrong gradient from a right one: held within MESH_MASTER_LR x lr,
+# they only guard against values that are not finite or not updated alike.
+MESH_LOSS_RTOL = 1e-3
+MESH_GRAD_RTOL = 2e-2
+MESH_MASTER_LR = 2.05
+
+
+def first_step_latents(torch, pipe, inputs):
+    """The latents after the first denoising step of main's call (its
+    inputs, noise and windows), f32 on the CPU."""
+    from mmgt_tpu_torch.pipelines.context import compute_context_schedule
+
+    dev = pipe.device
+    d = {k: v.to(dev) for k, v in inputs.items() if k != "masks"}
+    d["masks"] = tuple(tuple(m.to(dev) for m in lv) for lv in inputs["masks"])
+    tables = pipe.sampler_state(STEPS)
+    windows = compute_context_schedule(STEPS, d["pose_video"].shape[1], pipe.context_size, 1,
+                                       pipe.context_overlap)
+    with torch.no_grad():
+        cond, lat = pipe._prepare(**d, generator=torch.Generator(device=dev).manual_seed(SEED))
+        lat, _ = pipe._denoise_chunk(lat, pipe.init_aux(tables, lat), cond, tables, windows[:1],
+                                     GUIDANCE, (1.0, 1.0, 1.0))
+    return lat.float().cpu()
+
+
+def mesh_rank(margs, tmp: str):
+    """One rank of the mesh phase (2 gloo ranks on cuda:0): the full-width
+    pipeline at (dp = 2, tp = 1) and at (dp = 1, tp = 2), then one
+    full-width video train step at (dp = 1, tp = 2); each part's launch
+    counts (set to 0 just before, read just after), recorded signatures,
+    seconds, peak memory and all_reduce time, and the step's masters held
+    to the single-process step's, into rank<r>.pt."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mmgt_tpu_torch import ops
+    from mmgt_tpu_torch.device import disable_tf32
+    from mmgt_tpu_torch.ops import attention as A
+    from mmgt_tpu_torch.ops import fused_ln as L
+    from mmgt_tpu_torch.ops import motion_attention as M
+    from mmgt_tpu_torch.ops import norms as N
+    from mmgt_tpu_torch.parallel import collectives as C
+    from mmgt_tpu_torch.parallel.mesh import create_mesh, destroy, local_slice
+    from mmgt_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline
+    from mmgt_tpu_torch.training.stage2 import Stage2Trainer
+
+    disable_tf32()
+    kernel_mods = {"flash_attention": A, "group_norm": N, "ln_projections": L,
+                   "motion_attention": M, "flash_attention_bwd": A}
+    kw = dict(device="cuda:0", backend="gloo", timeout_s=MESH_TIMEOUT_S, **margs)
+    mesh_tp = create_mesh(dp=1, tp=MESH_WORLD, **kw)
+    mesh_dp = create_mesh(dp=MESH_WORLD, tp=1, **kw)
+    C.STATS["timed"] = True
+    out = {}
+    t0 = time.perf_counter()
+    pipe = Pose2VideoPipeline.build(torch.bfloat16, device="cuda:0", seed=SEED)
+    out["build_s"] = time.perf_counter() - t0
+    inputs = make_inputs(torch, FRAMES, SIZE, SEED)
+
+    def infer():
+        return pipe(**inputs, num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+                    generator=torch.Generator(device="cuda").manual_seed(SEED))
+
+    for tag, mesh in (("dp2", mesh_dp), ("tp2", mesh_tp)):
+        pipe.shard_(mesh)
+        lat1 = first_step_latents(torch, pipe, inputs)
+        C.reset_stats()
+        frames, counts, calls, sec, peak = record_call(torch, ops, kernel_mods, infer)
+        out[tag] = dict(frames=frames.float().cpu(), lat1=lat1, counts=counts, s=sec,
+                        peak_gib=peak,
+                        allreduce=dict(C.STATS),
+                        calls={k: [c, None if ln is None else ln.cpu()]
+                               for k, (c, ln) in calls.items()})
+        del frames
+    out["q_rows"] = pipe.denoising_unet.down_blocks[0].attentions[0] \
+        .transformer_blocks[0].attn1.to_q.weight.shape[0]
+    weights = torch.load(os.path.join(tmp, "mesh_small.pt"))
+    for tag, mesh in (("small_dp2", mesh_dp), ("small_tp2", mesh_tp)):
+        small = tiny_pipeline(torch, Pose2VideoPipeline, "cuda:0", torch.bfloat16)
+        for name, m in small.models().items():
+            m.load_state_dict(weights[name])
+        small.shard_(mesh)
+        out[tag] = small_run(torch, small, "cuda:0")
+        del small
+    pipe.denoising_unet.remat = True
+    trainer = Stage2Trainer(pipe)
+    state = trainer.init_state()
+    batch = make_train_batch(torch, 1, TRAIN_FRAMES, SIZE, SEED + 9, "cuda")
+    draws = trainer.batch_draws(batch, torch.Generator(device="cuda").manual_seed(SEED))
+    C.reset_stats()
+    metrics, counts, calls, sec, peak = record_call(
+        torch, ops, kernel_mods, lambda: trainer.train_step(state, batch, draws))
+    ref = torch.load(os.path.join(tmp, "mesh_ref_step.pt"), mmap=True)
+    specs, lr = trainer.specs(), trainer.learning_rate
+    worst, near, total, d2, r2, worst_rel = 0.0, 0, 0, 0.0, 0.0, (0.0, "")
+    for i, (n, m) in enumerate(state.masters.items()):
+        want = local_slice(ref["masters"][n].to(m.device), specs[n], mesh_tp)
+        require(want.shape == m.shape, f"mesh train: {n} shard {tuple(m.shape)}")
+        err = (m - want).abs()
+        worst = max(worst, err.max().item() / lr)
+        near += int((err <= 0.1 * lr).sum())
+        total += err.numel()
+        g, g_ref = state.optimizer.m[i], local_slice(ref["m"][n].to(m.device), specs[n], mesh_tp)
+        dd, rr = (g - g_ref).double().pow(2).sum().item(), g_ref.double().pow(2).sum().item()
+        d2, r2 = d2 + dd, r2 + rr
+        if rr > 0 and math.sqrt(dd / rr) > worst_rel[0]:
+            worst_rel = (math.sqrt(dd / rr), n)
+    out["train"] = dict(loss=float(metrics["loss"]), counts=counts, s=sec, peak_gib=peak,
+                        allreduce=dict(C.STATS), worst_over_lr=worst, near_share=near / total,
+                        grad_rel=math.sqrt(d2 / r2), grad_worst_rel=worst_rel,
+                        sharded=sum(specs[n] is not None for n in state.masters),
+                        masters=len(state.masters),
+                        calls={k: [c, None if ln is None else ln.cpu()]
+                               for k, (c, ln) in calls.items()})
+    torch.save(out, os.path.join(tmp, f"mesh_rank{mesh_tp.rank}.pt"))
+    destroy(mesh_tp)
+
+
+def nccl_cli_rank(margs, tmp: str, meta: str, port: int):
+    """The video CLI's main at world 1 as torchrun starts it (RANK,
+    WORLD_SIZE, MASTER_ADDR/PORT set): its mesh joins an NCCL process
+    group, one full-width step, the checkpoint written and the barrier
+    after it an NCCL all_reduce."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mmgt_tpu_torch.parallel import mesh as pmesh
+    from mmgt_tpu_torch.scripts import train_stage2 as cli
+
+    os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    made = {}
+    create = pmesh.create_mesh
+
+    def recording(*a, **k):
+        m = create(*a, **k)
+        made.update(backend=dist.get_backend(), world=m.world, groups=m.world_group is not None)
+        return m
+    pmesh.create_mesh = recording
+    ckpt = os.path.join(tmp, "nccl_ckpt")
+    t0 = time.perf_counter()
+    rc = cli.main(["--meta", meta, "--max_steps", "1", "--size", str(SIZE), "--batch_size", "1",
+                   "--checkpoint_dir", ckpt])
+    made.update(rc=rc, s=time.perf_counter() - t0,
+                ckpts=sorted(f for f in os.listdir(ckpt) if f.endswith(".ckpt"))
+                if os.path.isdir(ckpt) else [])
+    with open(os.path.join(tmp, "nccl_cli.json"), "w") as f:
+        json.dump(made, f)
+
+
+def run_mesh(torch, ops, tmp: str):
+    """The distributed layer on the one card: the single-process
+    references here, then MESH_WORLD gloo ranks on cuda:0 (`mesh_rank`),
+    then the video CLI at world 1 through NCCL (`nccl_cli_rank`). Returns
+    {part: (launches, recorded calls)} for the replay."""
+    import shutil
+    import socket
+
+    from mmgt_tpu_torch.parallel.launch import spawn
+    from mmgt_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline
+    from mmgt_tpu_torch.training.stage2 import Stage2Trainer
+
+    t_phase = time.perf_counter()
+    small_ref = tiny_pipeline(torch, Pose2VideoPipeline, "cpu", torch.float32)
+    small_bf16 = tiny_pipeline(torch, Pose2VideoPipeline, "cpu", torch.bfloat16)
+    for name, m in small_ref.models().items():
+        getattr(small_bf16, name).load_state_dict(m.state_dict())
+    small = {"cpu_f32": small_run(torch, small_ref, "cpu"),
+             "cpu_bf16": small_run(torch, small_bf16, "cpu")}
+    torch.save({n: m.state_dict() for n, m in small_ref.models().items()},
+               os.path.join(tmp, "mesh_small.pt"))
+    del small_ref, small_bf16
+    inputs = make_inputs(torch, FRAMES, SIZE, SEED)
+    pipe = Pose2VideoPipeline.build(torch.bfloat16, device="cuda", seed=SEED)
+
+    def infer():
+        return pipe(**inputs, num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+                    generator=torch.Generator(device="cuda").manual_seed(SEED)).float().cpu()
+
+    t0 = time.perf_counter()
+    ref, lat = infer(), first_step_latents(torch, pipe, inputs)
+    pipe.window_microbatch = 1   # one window a UNet call: what each dp rank runs
+    ref1, lat1 = infer(), first_step_latents(torch, pipe, inputs)
+    del pipe
+    trainer = Stage2Trainer.build(torch.bfloat16, device="cuda", seed=SEED, remat=True)
+    state = trainer.init_state()
+    batch = make_train_batch(torch, 1, TRAIN_FRAMES, SIZE, SEED + 9, "cuda")
+    draws = trainer.batch_draws(batch, torch.Generator(device="cuda").manual_seed(SEED))
+    ref_loss = float(trainer.train_step(state, batch, draws)["loss"])
+    torch.save({"masters": {n: m.cpu() for n, m in state.masters.items()},
+                "m": {n: m.cpu() for n, m in zip(state.masters, state.optimizer.m)}},
+               os.path.join(tmp, "mesh_ref_step.pt"))
+    del trainer, state, batch, draws
+    torch.cuda.empty_cache()
+    log(f"mesh: single-process references (2 pipeline calls, 1 train step) "
+        f"{time.perf_counter() - t0:.1f} s; train loss {ref_loss:.6f}")
+    t0 = time.perf_counter()
+    spawn(mesh_rank, MESH_WORLD, tmp, tmp)
+    log(f"mesh: {MESH_WORLD} gloo ranks on cuda:0, {time.perf_counter() - t0:.1f} s in all "
+        "(start, build, the parts below)")
+    ranks = [torch.load(os.path.join(tmp, f"mesh_rank{r}.pt")) for r in range(MESH_WORLD)]
+    os.remove(os.path.join(tmp, "mesh_ref_step.pt"))
+    os.remove(os.path.join(tmp, "mesh_small.pt"))
+    parts, fails = {}, []
+
+    def check(ok: bool, what: str):
+        if not ok:
+            fails.append(what)
+
+    diff = lambda a, b: ((a - b).abs().mean().item(), (a - b).abs().max().item())
+    floor = diff(ref, ref1)
+    tol = max(MESH_FRAME_FLOOR, SMALL_ERR_FACTOR * floor[0])
+    log(f"mesh: the single-process runs of 2 and of 1 window a UNet call differ by mean "
+        f"{floor[0]:.3e}, max {floor[1]:.3e}; frame tolerance {tol:.3e} (mean |diff|)")
+    lat_floor = diff(lat, lat1)
+    lat_tol = MESH_LATENT_FACTOR * lat_floor[0]
+    log(f"mesh: after the first step their latents differ by mean {lat_floor[0]:.3e}, max "
+        f"{lat_floor[1]:.3e} (mean |latent| {lat.abs().mean().item():.3e}); latent tolerance "
+        f"{lat_tol:.3e} (mean |diff|)")
+    for tag, what in (("dp2", "(dp = 2, tp = 1)"), ("tp2", "(dp = 1, tp = 2)")):
+        for r, res in enumerate(ranks):
+            got = res[tag]
+            require_frames(torch, f"mesh {tag} rank {r}", got["frames"],
+                           (1, FRAMES, SIZE, SIZE, 3))
+            require_launches(f"mesh {tag} rank {r}", got["counts"], INFERENCE_KERNELS)
+            d, d1 = diff(got["frames"], ref), diff(got["frames"], ref1)
+            check(d[0] <= tol, f"mesh {tag} rank {r}: frames mean |diff| {d[0]} > {tol}")
+            dl, dl1 = diff(got["lat1"], lat), diff(got["lat1"], lat1)
+            check(dl[0] <= lat_tol, f"mesh {tag} rank {r}: first-step latents mean |diff| "
+                  f"{dl[0]} > {lat_tol}")
+            check(torch.equal(got["lat1"], ranks[0][tag]["lat1"]),
+                  f"mesh {tag}: rank {r}'s first-step latents differ from rank 0's")
+            if tag == "dp2":  # each rank runs what the one-window-a-call run does
+                check(d1[0] <= tol, f"mesh dp2 rank {r}: frames mean |diff| {d1[0]} > {tol} "
+                      "against one window a call")
+            check(torch.equal(got["frames"], ranks[0][tag]["frames"]),
+                  f"mesh {tag}: rank {r}'s frames differ from rank 0's")
+            ar = got["allreduce"]
+            log(f"mesh {tag} {what} rank {r}: {got['s']:.3f} s; frames against the "
+                f"single-process run mean |diff| {d[0]:.3e} (tol {tol:.3e}), max "
+                f"{d[1]:.3e}; against one window a call mean {d1[0]:.3e}, max {d1[1]:.3e} "
+                f"(bitwise: {d1[1] == 0.0}); first-step latents against the single-process "
+                f"run mean |diff| {dl[0]:.3e} (tol {lat_tol:.3e}), max {dl[1]:.3e}, against "
+                f"one window a call mean {dl1[0]:.3e}; "
+                f"peak {got['peak_gib']:.2f} GiB; all_reduce {ar['calls']} calls, "
+                f"{ar['bytes']} bytes, {ar['seconds']:.3f} s; launches "
+                + json.dumps(got["counts"]))
+        parts[f"mesh_{tag}"] = (ranks[0][tag]["counts"], ranks[0][tag]["calls"])
+    check(ranks[0]["q_rows"] == 160, f"mesh tp2: to_q holds {ranks[0]['q_rows']} rows")
+    errs = lambda o: [(o[i] - small["cpu_f32"][i]).abs().mean().item() for i in (0, 1)]
+    plain = errs(small["cpu_bf16"])
+    for tag in ("small_dp2", "small_tp2"):
+        for r, res in enumerate(ranks):
+            got = errs(res[tag])
+            log(f"mesh {tag} rank {r}: mean abs err vs CPU f32 (latents, frames) {got}; plain "
+                f"bf16 on the CPU {plain} (tol: {SMALL_ERR_FACTOR}x the plain bf16 error)")
+            for i, what in enumerate(("latents", "frames")):
+                check(math.isfinite(got[i]) and got[i] <= SMALL_ERR_FACTOR * plain[i],
+                      f"mesh {tag} rank {r} {what}: the card's error exceeds "
+                      f"{SMALL_ERR_FACTOR}x the plain bf16 error")
+    for r, res in enumerate(ranks):
+        tr = res["train"]
+        rel = abs(tr["loss"] - ref_loss) / abs(ref_loss)
+        check(math.isfinite(tr["loss"]) and rel <= MESH_LOSS_RTOL,
+              f"mesh train rank {r}: loss {tr['loss']} against {ref_loss}")
+        check(tr["grad_rel"] <= MESH_GRAD_RTOL,
+              f"mesh train rank {r}: clipped gradients {tr['grad_rel']} (relative L2) from "
+              "the reference")
+        check(tr["worst_over_lr"] <= MESH_MASTER_LR,
+              f"mesh train rank {r}: a master {tr['worst_over_lr']} lr from the reference")
+        check(tr["counts"]["flash_attention_bwd"] == EXPECTED_K5_PER_STEP,
+              f"mesh train rank {r}: K5 launched {tr['counts']['flash_attention_bwd']} times")
+        for name in INFERENCE_KERNELS:
+            check(tr["counts"][name] > 0, f"mesh train rank {r}: {name} was not launched")
+        ar = tr["allreduce"]
+        log(f"mesh train (dp = 1, tp = 2) rank {r}: {tr['s']:.3f} s; loss {tr['loss']:.6f} "
+            f"(single process {ref_loss:.6f}, rel {rel:.2e}, tol {MESH_LOSS_RTOL}); clipped "
+            f"gradients relative L2 {tr['grad_rel']:.3e} from the single-process step (tol "
+            f"{MESH_GRAD_RTOL}), worst tensor {tr['grad_worst_rel'][0]:.3e} "
+            f"({tr['grad_worst_rel'][1]}); f32 masters "
+            f"{tr['sharded']}/{tr['masters']} sharded, worst {tr['worst_over_lr']:.3f} lr from "
+            f"the single-process step (tol {MESH_MASTER_LR}), {100 * tr['near_share']:.2f} % "
+            f"within 0.1 lr; peak {tr['peak_gib']:.2f} GiB; all_reduce {ar['calls']} calls, "
+            f"{ar['bytes']} bytes, {ar['seconds']:.3f} s; launches " + json.dumps(tr["counts"]))
+    parts["mesh_train_tp2"] = (ranks[0]["train"]["counts"], ranks[0]["train"]["calls"])
+    require(not fails, "; ".join(fails))
+    log("mesh: gloo reduces CUDA tensors through the host, so these all_reduce times say "
+        "nothing of NCCL between cards")
+    del ranks
+    # world 1 through NCCL: the video CLI as torchrun starts it
+    root = os.path.join(tmp, "nccl_cli")
+    meta = write_clip_records(root, 1, 20, SIZE, SEED + 71)
+    require_disk(tmp, 12 * 10**9, "mesh nccl_cli")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    spawn(nccl_cli_rank, 1, root, root, meta, port)
+    with open(os.path.join(root, "nccl_cli.json")) as f:
+        made = json.load(f)
+    require(made.get("backend") == "nccl" and made.get("groups") and made.get("rc") == 0
+            and made.get("ckpts") == ["ckpt-1.ckpt"], f"mesh nccl_cli: {made}")
+    log(f"mesh nccl_cli: the video CLI at world 1 under the torchrun environment, backend "
+        f"{made['backend']}, one step and its checkpoint in {made['s']:.1f} s "
+        f"({time.perf_counter() - t0:.1f} s with the process start)")
+    shutil.rmtree(root)
+    log(f"mesh: {time.perf_counter() - t_phase:.1f} s")
+    return parts
+
+
 INFERENCE_KERNELS = ("flash_attention", "group_norm", "ln_projections", "motion_attention")
 KERNEL_META = {
     "flash_attention": ("K1 flash attention (two-segment, kv_lens, LSE)", "cuda",
@@ -2703,8 +3099,8 @@ def main(argv) -> int:
     from mmgt_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline
     from mmgt_tpu_torch.training.stage2 import Stage2Trainer
 
-    if argv not in ([], ["profile"]):
-        print("usage: python3 chip_smoke.py [profile]", file=sys.stderr)
+    if argv not in ([], ["profile"], ["mesh"]):
+        print("usage: python3 chip_smoke.py [profile | mesh]", file=sys.stderr)
         return 2
     disable_tf32()
 
@@ -2714,10 +3110,16 @@ def main(argv) -> int:
     card = card_line()
     log(f"card: {card}")
 
-    if argv:
+    if argv == ["profile"]:
         run_profile(torch, Pose2VideoPipeline)
         run_profile_train(torch, Stage2Trainer)
         run_profile_train_image(torch)
+    elif argv == ["mesh"]:
+        kernel_mods = {"flash_attention": A, "group_norm": N, "ln_projections": L,
+                       "motion_attention": M, "flash_attention_bwd": A}
+        with tempfile.TemporaryDirectory() as tmp:
+            for tag, (counts_, calls_) in run_mesh(torch, ops, tmp).items():
+                check_a2v_calls(torch, calls_, A, N, L, M, tag, {})
     else:
         kernel_mods = {"flash_attention": A, "group_norm": N, "ln_projections": L,
                        "motion_attention": M, "flash_attention_bwd": A}
@@ -2779,6 +3181,9 @@ def main(argv) -> int:
             t0 = time.perf_counter()
             paths["train_a2p"] = dict(launches=run_train_a2p(torch, ops, tmp), calls={})
             log(f"train_a2p: {time.perf_counter() - t0:.1f} s")
+            for tag, (counts_, calls_) in run_mesh(torch, ops, tmp).items():
+                paths[tag] = dict(launches=counts_, calls=check_a2v_calls(
+                    torch, calls_, A, N, L, M, tag, checked))
         kernels = []
         for name, r in recs.items():
             title, route, source, replaces = KERNEL_META[name]

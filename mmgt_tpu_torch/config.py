@@ -1,9 +1,9 @@
 """Configuration: a copy of `mmgt_tpu/config.py` (`SchedulerConfig`,
 `InferenceConfig`, the three training configs and `load_config`). PyYAML is
 imported only when a `.yaml` file is passed; JSON files and overrides need
-nothing beyond the standard library. The training configs keep the JAX
-package's `mesh_dp` / `mesh_tp` fields so that its config files load; the
-port trains on one card and does not read them."""
+nothing beyond the standard library. The Stage-2 training configs'
+`mesh_dp` / `mesh_tp` give the training CLIs' mesh (`parallel/mesh.py`,
+read under torchrun), as in the JAX package."""
 from __future__ import annotations
 
 import dataclasses

@@ -12,6 +12,10 @@
 //      the frame attention, writing only the attention output o (bf16);
 //   3. csrc/ln_proj.cu's GEMM without LayerNorm (kernel B): o . W_o^T with
 //      the f32 bias and the bf16 residual x.
+// On a head shard (tensor parallelism) kernel A takes H local heads of D
+// columns: W_q/W_k/W_v of (inner = H D, C), o of (B F L, inner); the
+// caller runs kernel B on W_o (C, inner) without bias or residual and adds
+// both once after the tp reduce.
 // Numerics as the TPU kernel: the normalised row (+pe) rounded to bf16
 // before the products, q and k kept at the projection's f32 accumulation
 // (the logits multiply exact f32 products), v rounded to bf16, f32 softmax,
@@ -212,9 +216,9 @@ __device__ __forceinline__ void logits_softmax(const float* qs, const float* ks,
 
 struct AttnParams {
   CUtensorMap th;          // h (B, F, L, C) as (C, L, F, B): boxes (64, Lt, F, 1)
-  CUtensorMap tw[3];       // W_q, W_k, W_v (C, C): boxes (64, D)
-  bf16* o;                 // (B, F, L, C)
-  int F, L, C, Lt, kchunks, stages;
+  CUtensorMap tw[3];       // W_q, W_k, W_v (inner, C): boxes (64, D)
+  bf16* o;                 // (B, F, L, inner)
+  int F, L, C, inner, Lt, kchunks, stages;
   float scale;
 };
 
@@ -234,7 +238,7 @@ __global__ void __launch_bounds__(kThreads, RP == 128 && D <= 64 ? 2 : 1)
   auto full = [&](int s) { return bars + 8u * s; };
 
   const int h = blockIdx.x, l0 = blockIdx.y * p.Lt, b = blockIdx.z;
-  const int F = p.F, L = p.L, C = p.C, Lt = p.Lt;
+  const int F = p.F, L = p.L, Lt = p.Lt;
   const int nt = min(Lt, L - l0);  // valid tokens of this block
   const int rows = F * Lt;
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
@@ -344,8 +348,8 @@ __global__ void __launch_bounds__(kThreads, RP == 128 && D <= 64 ? 2 : 1)
 #pragma unroll
       for (int u = 0; u < 4; ++u)
         pw[u] = mma_tiles::pack_bf16(acc[k][2 * u], acc[k][2 * u + 1]);
-      *reinterpret_cast<uint4*>(p.o + (((long long)b * F + i0 + k) * L + l0 + t) * C + h * D +
-                                8 * cv) = packed;
+      *reinterpret_cast<uint4*>(p.o + (((long long)b * F + i0 + k) * L + l0 + t) * p.inner +
+                                h * D + 8 * cv) = packed;
     }
   }
 }
@@ -384,15 +388,17 @@ extern "C" int mmgt_ln_pe(const void* x, const void* gamma, const void* beta, co
   return (int)cudaGetLastError();
 }
 
-// Kernel A on h = ln_pe(x). (rp, lt, stages, smem) is the Python plan,
-// checked here.
+// Kernel A on h = ln_pe(x): H heads of D columns, W_q/W_k/W_v of
+// (inner, C) with inner = H D (inner = C unsharded; a head shard's rows
+// under tensor parallelism), o (B F L, inner). (rp, lt, stages, smem) is
+// the Python plan, checked here.
 extern "C" int mmgt_motion_attn(const void* h, const void* wq, const void* wk, const void* wv,
-                                void* o, int B, int F, int L, int C, int H, float scale, int rp,
-                                int lt, int stages, int smem, void* stream) {
+                                void* o, int B, int F, int L, int C, int H, int D, float scale,
+                                int rp, int lt, int stages, int smem, void* stream) {
   if (B <= 0 || L <= 0) return 0;
-  if (H <= 0 || C % H != 0 || C % 8 != 0 || F < 1 || F > 32 || B > 65535 || H > 65535)
+  if (H <= 0 || D <= 0 || C % 8 != 0 || F < 1 || F > 32 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
-  const int D = C / H;
+  const int inner = H * D;
   const int want_rp = D <= 96 ? 128 : 64;
   if (rp != want_rp || lt < 1 || lt * F > rp || lt > L || stages < 2 || stages > 4 ||
       smem != attn_smem(rp, D, stages, F, lt) || smem > kMaxSmem)
@@ -405,9 +411,9 @@ extern "C" int mmgt_motion_attn(const void* h, const void* wq, const void* wk, c
   if (!encode_bf16(&p.th, h, 4, dims, strides, box, 128)) return (int)cudaErrorInvalidValue;
   const void* ws[3] = {wq, wk, wv};
   for (int i = 0; i < 3; ++i)
-    if (!make_map_2d(&p.tw[i], ws[i], C, C, D)) return (int)cudaErrorInvalidValue;
+    if (!make_map_2d(&p.tw[i], ws[i], inner, C, D)) return (int)cudaErrorInvalidValue;
   p.o = (bf16*)o;
-  p.F = F; p.L = L; p.C = C; p.Lt = lt; p.kchunks = (C + kSpan - 1) / kSpan; p.stages = stages;
+  p.F = F; p.L = L; p.C = C; p.inner = inner; p.Lt = lt; p.kchunks = (C + kSpan - 1) / kSpan; p.stages = stages;
   p.scale = scale;
   if ((L + lt - 1) / lt > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = (cudaStream_t)stream;

@@ -1,11 +1,15 @@
 """AudioProjModel (`mmgt_tpu/models/audio_proj.py`): per-frame wav2vec
-window -> 32 context tokens, (B, F, 5, 12, 768) -> (B, F, 32, 768)."""
+window -> 32 context tokens, (B, F, 5, 12, 768) -> (B, F, 32, 768).
+Under tensor parallelism proj1 and proj2 are both column shards (the JAX
+rules), so proj1's output is gathered before proj2; proj3 is a row shard
+completed by one reduce."""
 from __future__ import annotations
 
 import torch.nn.functional as F
 from torch import nn
 
-from mmgt_tpu_torch.nn.layers import LayerNorm
+from mmgt_tpu_torch.nn.layers import LayerNorm, col_linear, row_linear, tp_mesh
+from mmgt_tpu_torch.parallel.collectives import gather_last
 
 
 class AudioProjModel(nn.Module):
@@ -22,6 +26,9 @@ class AudioProjModel(nn.Module):
     def forward(self, audio_embeds):
         b, f = audio_embeds.shape[:2]
         x = audio_embeds.reshape(b * f, -1)
-        x = F.relu(self.proj2(F.relu(self.proj1(x))))
-        x = self.proj3(x).reshape(b * f, self.context_tokens, self.output_dim)
+        # tp: proj1 and proj2 are column shards, so proj1's output is
+        # gathered before proj2; proj3 is a row shard
+        h = F.relu(col_linear(x, self.proj1))
+        x = F.relu(col_linear(gather_last(h, tp_mesh(self)), self.proj2))
+        x = row_linear(x, self.proj3).reshape(b * f, self.context_tokens, self.output_dim)
         return self.norm(x).reshape(b, f, self.context_tokens, self.output_dim)

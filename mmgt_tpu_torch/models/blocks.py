@@ -10,6 +10,14 @@ the bank as pre-projected batch-1 K/V (`unet3d.precompute_bank_kv`); in
 training as raw per-example tokens (B, L_ref, C), repeated over the frames
 and concatenated after the self K/V. Either way `kv_lens` gates the bank
 per row (the CFG-uncond or dropped rows stop at their own tokens).
+
+Tensor parallelism (`parallel.mesh.shard_`): besides `Attention` and
+`FeedForward` (nn/layers.py), the audio block's three cross-attentions run
+on local heads and complete their partial sums with one reduce after the
+zero convs; the spatial wrappers' and the motion module's proj_out are
+row-parallel on a replicated input (sliced, then reduced); the temporal
+attention runs K4 on its head shard without residual and bias, which are
+added once after the reduce.
 """
 from __future__ import annotations
 
@@ -25,10 +33,13 @@ from mmgt_tpu_torch.nn.layers import (
     FeedForward,
     GroupNorm,
     LayerNorm,
+    row_linear_replicated,
+    tp_mesh,
 )
 from mmgt_tpu_torch.ops.attention import attention_plain
 from mmgt_tpu_torch.ops.fused_ln import ln_projections
 from mmgt_tpu_torch.ops.motion_attention import motion_attention, sinusoidal_positions
+from mmgt_tpu_torch.parallel.collectives import copy_to_tp, reduce_from_tp
 
 
 # --------------------------------------------------------------------------
@@ -175,7 +186,12 @@ class AudioTransformerBlock(nn.Module):
     contractions. The first `n_uncond_rows` rows (CFG uncond, zero audio
     tokens) take the closed form x + sum_i s_i (mask_i (b_out_i W_zc_i) +
     b_zc_i), as the JAX package. Their 32-token KV uses the plain attention
-    math, as the XLA route of the JAX package does."""
+    math, as the XLA route of the JAX package does. The other rows take
+    the out projections' bias terms in the same closed form, added apart
+    from the products: on a head shard the products are partial sums, and
+    mask, scale and zero conv are linear, so one reduce follows them and
+    the bias terms are added once after it. The closed form uses
+    replicated weights only and is not reduced."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int = 768):
         super().__init__()
@@ -195,30 +211,34 @@ class AudioTransformerBlock(nn.Module):
         x = x + self.attn1(x, pre_norm=self.norm1)
         nu = n_uncond_rows
         b, lq, c = x.shape
-        h, d = self.heads, self.head_dim
-        inner = h * d
-        assert inner == c, (inner, c)
+        mesh = tp_mesh(self)
+        d = self.head_dim
         projs = [getattr(self, f"attn2_{i}") for i in range(3)]
         zcs = [getattr(self, f"zero_conv_{n}") for n in _AUDIO_REGIONS]
+        h = projs[0].to_q.weight.shape[0] // d    # this rank's heads
+        inner = h * d
+        assert mesh is not None or inner == c, (inner, c)
         xc = x[nu:]
-        q3 = ln_projections(xc, self.norm2.weight, self.norm2.bias,
+        q3 = ln_projections(copy_to_tp(xc, mesh), copy_to_tp(self.norm2.weight, mesh),
+                            copy_to_tp(self.norm2.bias, mesh),
                             [p.to_q.weight for p in projs], [None] * 3, self.norm2.eps)
-        ctx = audio_tokens[nu:]
+        ctx = copy_to_tp(audio_tokens[nu:], mesh)
         q = torch.cat([t.reshape(b - nu, lq, h, d) for t in q3], 2)
-        k = torch.cat([p.to_k(ctx).reshape(b - nu, -1, h, d) for p in projs], 2)
-        v = torch.cat([p.to_v(ctx).reshape(b - nu, -1, h, d) for p in projs], 2)
+        k = torch.cat([F.linear(ctx, p.to_k.weight).reshape(b - nu, -1, h, d) for p in projs], 2)
+        v = torch.cat([F.linear(ctx, p.to_v.weight).reshape(b - nu, -1, h, d) for p in projs], 2)
         o3 = attention_plain(q, k, v).reshape(b - nu, lq, 3, inner)
         wo = torch.stack([p.to_out[0].weight.t() for p in projs])     # (3, inner, C)
         bo = torch.stack([p.to_out[0].bias for p in projs])           # (3, C)
         scales = torch.tensor(list(motion_scale), dtype=x.dtype, device=x.device)
-        h3 = torch.einsum("blid,idc->blic", o3, wo) + bo[None, None]
-        mask3 = torch.stack([m[nu:] for m in masks], 2).to(h3.dtype)
-        h3 = h3 * (mask3 * scales)[..., None]
+        mask3 = torch.stack([m[nu:] for m in masks], 2).to(o3.dtype)
         w_zc = torch.cat([z.weight.t() for z in zcs], 0)             # (3C, C)
         b_zc = (scales[:, None] * torch.stack([z.bias for z in zcs])).sum(0)
-        out_c = xc + h3.reshape(b - nu, lq, 3 * c) @ w_zc + b_zc
+        part = torch.einsum("blid,idc->blic", o3, wo) * (mask3 * scales)[..., None]
+        # the zero convs meet (under tp) partial sums: their gradient is summed over tp
+        part = reduce_from_tp(part.reshape(b - nu, lq, 3 * c) @ copy_to_tp(w_zc, mesh), mesh)
+        zc_b = torch.stack([bo[i] @ zcs[i].weight.t() for i in range(3)])   # (3, C)
+        out_c = xc + part + torch.einsum("bli,ic->blc", mask3 * scales, zc_b) + b_zc
         if nu:
-            zc_b = torch.stack([bo[i] @ zcs[i].weight.t() for i in range(3)])   # (3, C)
             mask_u3 = torch.stack([m[:nu] for m in masks], 2).to(x.dtype)
             hu = torch.einsum("bli,ic->blc", mask_u3 * scales, zc_b)
             x = torch.cat([x[:nu] + hu + b_zc, out_c], 0)
@@ -243,7 +263,7 @@ class _SpatialWrapper(nn.Module):
         return self.proj_in(self.norm(x).reshape(n, hh * ww, c))
 
     def _out(self, tokens, residual):
-        return self.proj_out(tokens).reshape(residual.shape) + residual
+        return row_linear_replicated(tokens, self.proj_out).reshape(residual.shape) + residual
 
 
 class SpatialTransformer2D(_SpatialWrapper):
@@ -291,7 +311,9 @@ class SpatialTransformerAudio(_SpatialWrapper):
 # temporal (motion) module
 # --------------------------------------------------------------------------
 class TemporalAttention(nn.Module):
-    """Frame-axis attention with LN + PE + residual fused (K4 on the card)."""
+    """Frame-axis attention with LN + PE + residual fused (K4 on the card).
+    On a head shard K4 takes the local heads and gives W_o's partial sum;
+    the reduce, b_o and the residual follow."""
 
     def __init__(self, channels: int, heads: int):
         super().__init__()
@@ -303,11 +325,21 @@ class TemporalAttention(nn.Module):
 
     def forward(self, x, norm: LayerNorm, pe):
         """x (B, F, L, C) -> x + attn_frames(norm(x) + pe)."""
-        return motion_attention(
-            x, norm.weight, norm.bias, pe, self.to_q.weight, self.to_k.weight,
-            self.to_v.weight, self.to_out[0].weight, self.to_out[0].bias,
-            self.heads, norm.eps,
+        mesh = tp_mesh(self)
+        if mesh is None:
+            return motion_attention(
+                x, norm.weight, norm.bias, pe, self.to_q.weight, self.to_k.weight,
+                self.to_v.weight, self.to_out[0].weight, self.to_out[0].bias,
+                self.heads, norm.eps,
+            )
+        d = x.shape[-1] // self.heads
+        part = motion_attention(
+            copy_to_tp(x, mesh), copy_to_tp(norm.weight, mesh), copy_to_tp(norm.bias, mesh), pe,
+            self.to_q.weight, self.to_k.weight, self.to_v.weight, self.to_out[0].weight, None,
+            self.to_q.weight.shape[0] // d, norm.eps, residual=False,
         )
+        out = reduce_from_tp(part, mesh).float() + self.to_out[0].bias.float() + x.float()
+        return out.to(x.dtype)
 
 
 class TemporalTransformerBlock(nn.Module):
@@ -356,4 +388,4 @@ class MotionModule(nn.Module):
         tokens = tt.norm(x).reshape(n // video_length, video_length, hh * ww, c)
         tokens = tt.proj_in(tokens)
         tokens = tt.transformer_blocks[0](tokens)
-        return x + tt.proj_out(tokens).reshape(n, hh, ww, c)
+        return x + row_linear_replicated(tokens, tt.proj_out).reshape(n, hh, ww, c)

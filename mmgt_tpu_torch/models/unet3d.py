@@ -49,7 +49,13 @@ from mmgt_tpu_torch.models.blocks import (
     SpatialTransformerRef,
     Upsample,
 )
-from mmgt_tpu_torch.nn.layers import ConvNHWC, GroupNorm, TimestepEmbedding, timestep_embedding
+from mmgt_tpu_torch.nn.layers import (
+    ConvNHWC,
+    GroupNorm,
+    TimestepEmbedding,
+    col_linear,
+    timestep_embedding,
+)
 
 
 def _fold(x):
@@ -246,13 +252,14 @@ def bank_attn_names(block_out_channels: Sequence[int] = (320, 640, 1280, 1280),
 def precompute_bank_kv(unet: DenoisingUNet3D, banks: Sequence[torch.Tensor]):
     """Project every reference bank (1, L_i, C_i) through its block's attn1
     to_k/to_v ONCE per generation, in the plain (1, L_i, heads, d_i) layout
-    that K1's bank segment reads with batch stride 0."""
+    that K1's bank segment reads with batch stride 0 (on a head shard: this
+    rank's heads)."""
     attns = unet.bank_attentions()
     assert len(attns) == len(banks), (len(attns), len(banks))
     out = []
     for attn, bank in zip(attns, banks):
         bank = bank.to(attn.to_k.weight.dtype)
-        shape = (1, bank.shape[1], attn.heads, attn.head_dim)
-        out.append((attn.to_k(bank).reshape(shape).contiguous(),
-                    attn.to_v(bank).reshape(shape).contiguous()))
+        shape = (1, bank.shape[1], -1, attn.head_dim)   # the local heads on a head shard
+        out.append((col_linear(bank, attn.to_k).reshape(shape).contiguous(),
+                    col_linear(bank, attn.to_v).reshape(shape).contiguous()))
     return out

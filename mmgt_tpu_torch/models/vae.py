@@ -19,7 +19,11 @@ SD_VAE_SCALE = 0.18215
 
 
 class VAEAttention(Attention):
-    """Single-head self-attention over spatial tokens (VAE mid block)."""
+    """Single-head self-attention over spatial tokens (VAE mid block). The
+    JAX rules column-shard its to_q/k/v anyway; one head cannot be split,
+    so under tensor parallelism `Attention` gathers the q/k/v shards before
+    K1 at d = 512 and runs to_out row-parallel on o's local columns (the
+    VAE's only layer that gathers)."""
 
     def __init__(self, channels: int):
         super().__init__(channels, 1, channels)

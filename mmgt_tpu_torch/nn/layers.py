@@ -6,6 +6,17 @@ names follow the reference's torch state dicts (`weight`, `bias`,
 the reference checkpoint's keys. The lane-packed projections of the JAX
 package (`_PackedQKV`, `_PackedOut`) are a TPU layout and have no
 counterpart here.
+
+Tensor parallelism: `parallel.mesh.shard_` leaves each rank the slice of
+every q/k/v, GEGLU-in, to_out and FFN-out weight that the JAX rules give
+it and sets `module.tp` (the mesh) on every module. Then `Attention` runs
+on its local heads (q/k/v column slices, K1 on those heads, a row-parallel
+to_out whose bias is added once after the reduce) and `FeedForward` on its
+GEGLU half-pairs (hidden[r], gate[r]) with a row-parallel proj_out. An
+attention with fewer heads than tp ranks (the VAE's one head at d = 512)
+gathers its q/k/v shards before K1 and slices o for to_out, as XLA
+gathers around a custom call. Without a mesh (`tp` unset) every layer
+computes as before.
 """
 from __future__ import annotations
 
@@ -17,8 +28,56 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmgt_tpu_torch.ops.attention import flash_attention
+from mmgt_tpu_torch.parallel.collectives import (
+    copy_to_tp,
+    gather_last,
+    reduce_from_tp,
+    tp_slice_last,
+)
+from mmgt_tpu_torch.parallel.mesh import local_slice
 from mmgt_tpu_torch.ops.fused_ln import ln_projections
 from mmgt_tpu_torch.ops.norms import group_norm, layer_norm
+
+
+def tp_mesh(module: nn.Module):
+    """The mesh `shard_` gave `module` (tp > 1), else None."""
+    return getattr(module, "tp", None)
+
+
+def col_bias(lin: nn.Linear) -> Optional[torch.Tensor]:
+    """A column-parallel layer's bias slice; the bias itself stays whole
+    (replicated), and its gradient is summed over tp."""
+    mesh = tp_mesh(lin)
+    if lin.bias is None or mesh is None:
+        return lin.bias
+    return local_slice(copy_to_tp(lin.bias, mesh), lin.tp_shard, mesh)
+
+
+def col_linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """`lin(x)`; on a column shard, the local output columns of the
+    replicated x."""
+    mesh = tp_mesh(lin)
+    if mesh is None:
+        return lin(x)
+    return F.linear(copy_to_tp(x, mesh), lin.weight, col_bias(lin))
+
+
+def row_linear(x_local: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """`lin(x)`; on a row shard, x's local columns times the local weight,
+    reduced over tp, then the bias once."""
+    mesh = tp_mesh(lin)
+    if mesh is None:
+        return lin(x_local)
+    y = reduce_from_tp(F.linear(x_local, lin.weight), mesh)
+    return y if lin.bias is None else y + lin.bias
+
+
+def row_linear_replicated(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """`lin(x)` for a replicated x; on a row shard, x is sliced first."""
+    mesh = tp_mesh(lin)
+    if mesh is None:
+        return lin(x)
+    return row_linear(tp_slice_last(x, mesh), lin)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
@@ -115,13 +174,15 @@ class FeedForward(nn.Module):
 
     def forward(self, x, pre_norm: Optional[LayerNorm] = None):
         proj = self.net[0].proj
+        mesh = tp_mesh(self)
         if pre_norm is not None:
-            (h,) = ln_projections(x, pre_norm.weight, pre_norm.bias, (proj.weight,),
-                                  (proj.bias,), pre_norm.eps)
+            (h,) = ln_projections(copy_to_tp(x, mesh), copy_to_tp(pre_norm.weight, mesh),
+                                  copy_to_tp(pre_norm.bias, mesh), (proj.weight,),
+                                  (col_bias(proj),), pre_norm.eps)
         else:
-            h = proj(x)
+            h = col_linear(x, proj)
         h, gate = h.chunk(2, dim=-1)
-        return self.net[2](h * F.gelu(gate))
+        return row_linear(h * F.gelu(gate), self.net[2])
 
 
 class Attention(nn.Module):
@@ -159,26 +220,39 @@ class Attention(nn.Module):
             raise ValueError("bank extends SELF-attention K/V only")
         if bank_kv is not None and bank is not None:
             raise ValueError("pass the bank raw or pre-projected, not both")
+        mesh = tp_mesh(self)
+        # fewer heads than tp ranks: the q/k/v shards are gathered
+        gather = mesh is not None and self.heads % mesh.tp != 0
         if context is not None and context.shape[1] == 1 and kv_lens is None:
-            out = self.to_out[0](self.to_v(context))
+            v1 = col_linear(context, self.to_v)
+            out = self._out(gather_last(v1, mesh) if gather else v1, gather)
             return out.expand(b, lq, out.shape[-1])
         if pre_norm is not None and context is None:
             q, k, v = ln_projections(
-                x, pre_norm.weight, pre_norm.bias,
+                copy_to_tp(x, mesh), copy_to_tp(pre_norm.weight, mesh),
+                copy_to_tp(pre_norm.bias, mesh),
                 (self.to_q.weight, self.to_k.weight, self.to_v.weight),
                 (None, None, None), pre_norm.eps,
             )
         else:
             x_in = pre_norm(x) if pre_norm is not None else x
             kv = x_in if context is None else context
-            q, k, v = self.to_q(x_in), self.to_k(kv), self.to_v(kv)
+            q, k, v = col_linear(x_in, self.to_q), col_linear(kv, self.to_k), \
+                col_linear(kv, self.to_v)
         if bank is not None:
-            k = torch.cat([k, self.to_k(bank)], 1)
-            v = torch.cat([v, self.to_v(bank)], 1)
-        h, d = self.heads, self.head_dim
-        q = q.reshape(b, lq, h, d)
-        k = k.reshape(b, k.shape[1], h, d)
-        v = v.reshape(b, v.shape[1], h, d)
+            k = torch.cat([k, col_linear(bank, self.to_k)], 1)
+            v = torch.cat([v, col_linear(bank, self.to_v)], 1)
+        if gather:
+            q, k, v = gather_last(q, mesh), gather_last(k, mesh), gather_last(v, mesh)
+        d = self.head_dim
+        q = q.reshape(b, lq, -1, d)
+        k = k.reshape(b, k.shape[1], -1, d)
+        v = v.reshape(b, v.shape[1], -1, d)
         kb, vb = bank_kv if bank_kv is not None else (None, None)
         o = flash_attention(q, k, v, kv_lens, kb, vb)
-        return self.to_out[0](o.reshape(b, lq, h * d))
+        return self._out(o.reshape(b, lq, -1), gather)
+
+    def _out(self, o, gathered: bool):
+        """to_out.0 on the (local-head or gathered) attention output."""
+        lin = self.to_out[0]
+        return row_linear_replicated(o, lin) if gathered else row_linear(o, lin)

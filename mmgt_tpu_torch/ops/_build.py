@@ -54,7 +54,7 @@ SIGNATURES = {
     },
     "motion_attn": {
         "mmgt_ln_pe": [VP] * 5 + [LL] + [INT] * 3 + [FLT, VP],
-        "mmgt_motion_attn": [VP] * 5 + [INT] * 5 + [FLT] + [INT] * 4 + [VP],
+        "mmgt_motion_attn": [VP] * 5 + [INT] * 6 + [FLT] + [INT] * 4 + [VP],
     },
 }
 

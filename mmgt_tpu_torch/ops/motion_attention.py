@@ -17,7 +17,11 @@ tokens, row), which runs the head's q/k/v projections on wgmma (TMA-fed)
 and the frame attention from shared memory, and writes only the attention
 output o; and K3's GEMM (csrc/ln_proj.cu) without LayerNorm for W_o, with
 the f32 bias and the residual. q and k never reach device memory. The plan
-of kernel A (`attn_plan`) is computed here and checked by its C entry. It
+of kernel A (`attn_plan`) is computed here and checked by its C entry.
+On a head shard (tensor parallelism) the q/k/v weights are (H_local D, C)
+and W_o (C, H_local D): kernel A writes o (M, H_local D) and the W_o GEMM
+runs without its residual and bias (`residual=False`), which the caller
+adds once after the reduce. It
 takes every token count L and up to 32 frames (the TPU's L % 128 == 0 gate
 was a tiling rule); the head dims are those of `_HEAD_DIMS`. Bound on the
 H100 for the whole: operations at level 0 (the four C x C products).
@@ -30,6 +34,7 @@ as the JAX package's `_motion_vjp_bwd` (`ops/_vjp.py`).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -54,9 +59,14 @@ def sinusoidal_positions(max_len: int, dim: int, device=None) -> torch.Tensor:
 
 
 def motion_attention_plain(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads: int,
-                           eps: float = 1e-5):
+                           eps: float = 1e-5, residual: bool = True):
+    """`heads` heads of d = inner / heads on q/k/v weights (inner, C) and
+    W_o (C, inner): inner = C unsharded, a head shard's columns under tensor
+    parallelism. `residual=False` returns W_o . attn alone (plus b_o if
+    given): a row-parallel partial sum, completed by the caller."""
     b, f, l, c = x.shape
-    d = c // heads
+    inner = wq.shape[0]
+    d = inner // heads
     cdt = x.dtype
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
@@ -69,8 +79,13 @@ def motion_attention_plain(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads: int,
     v = (h @ wv.float().t()).to(cdt).float().reshape(b, f, l, heads, d)
     logits = torch.einsum("bflhd,bglhd->blhfg", q, k) * (1.0 / math.sqrt(d))
     probs = torch.softmax(logits, dim=-1).to(cdt).float()
-    o = torch.einsum("blhfg,bglhd->bflhd", probs, v).to(cdt).reshape(b, f, l, c)
-    out = xf + o.float() @ wo.float().t() + bo.float()
+    o = torch.einsum("blhfg,bglhd->bflhd", probs, v).to(cdt).reshape(b, f, l, inner)
+    if residual:
+        out = xf + o.float() @ wo.float().t() + bo.float()
+    else:
+        out = o.float() @ wo.float().t()
+        if bo is not None:
+            out = out + bo.float()
     return out.to(cdt)
 
 
@@ -93,16 +108,20 @@ def attn_smem(rp: int, d: int, stages: int, frames: int, lt: int) -> int:
     return 1024 + region + probs + 8 * stages
 
 
-def attn_plan(frames: int, tokens: int, channels: int, heads: int) -> dict:
-    """Kernel A's plan for x (B, F, L, C): RP = 128 rows a block (two
+def attn_plan(frames: int, tokens: int, channels: int, heads: int,
+              inner: Optional[int] = None) -> dict:
+    """Kernel A's plan for x (B, F, L, C) and `heads` heads of d = inner /
+    heads (inner = C unless the weights are a head shard of
+    (inner, C)): RP = 128 rows a block (two
     warpgroups of 64 rows) for d <= 96, else 64 (the warpgroups split the
     head's columns); Lt = RP // F tokens (frame-major rows f Lt + t, the rest
     padding); the deepest ring (2-4 stages) that lets two blocks share an
     SM, else the deepest that fits one. Raises on a shape it does not take."""
-    d = channels // heads
-    if channels != heads * d or d not in _HEAD_DIMS or channels % 8 != 0:
-        raise ValueError(f"K4 takes C = heads * d with d in {_HEAD_DIMS}, got C = {channels}, "
-                         f"{heads} heads")
+    inner = channels if inner is None else inner
+    d = inner // heads
+    if inner != heads * d or d not in _HEAD_DIMS or channels % 8 != 0:
+        raise ValueError(f"K4 takes inner = heads * d with d in {_HEAD_DIMS} and C % 8 == 0, "
+                         f"got inner = {inner}, {heads} heads, C = {channels}")
     if not 1 <= frames <= 32:
         raise ValueError(f"K4 takes 1 to 32 frames, got {frames}")
     if channels > _MAX_CHANNELS:
@@ -130,39 +149,44 @@ def ln_pe(x, gamma, beta, pe, eps: float):
     return h
 
 
-def _launch(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads, eps):
+def _launch(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads, eps, residual=True):
     global LAUNCHES
     b, f, l, c = x.shape
-    plan = attn_plan(f, l, c, heads)
+    inner = wq.shape[0]
+    plan = attn_plan(f, l, c, heads, inner)
     if not x.is_contiguous() or x.dtype != torch.bfloat16:
         raise ValueError("K4 takes a contiguous bf16 input")
-    for w in (wq, wk, wv, wo):
-        if w.dtype != torch.bfloat16 or tuple(w.shape) != (c, c) or not w.is_contiguous():
-            raise ValueError(f"K4 takes contiguous bf16 ({c}, {c}) weights")
+    for w, shape in ((wq, (inner, c)), (wk, (inner, c)), (wv, (inner, c)), (wo, (c, inner))):
+        if w.dtype != torch.bfloat16 or tuple(w.shape) != shape or not w.is_contiguous():
+            raise ValueError(f"K4 takes contiguous bf16 ({inner}, {c}) q/k/v and ({c}, {inner}) "
+                             "W_o weights")
     if tuple(pe.shape) != (f, c):
         raise ValueError(f"K4 takes pe ({f}, {c}), got {tuple(pe.shape)}")
     x2 = x.reshape(-1, c)
     h = ln_pe(x, gamma.float().contiguous(), beta.float().contiguous(),
               pe.float().contiguous(), eps)
-    o = torch.empty_like(x2)
+    o = torch.empty((x2.shape[0], inner), dtype=x.dtype, device=x.device)
+    d = inner // heads
     lib = _build.load("motion_attn")
     rc = lib.mmgt_motion_attn(
         h.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), o.data_ptr(), b, f, l, c,
-        heads, 1.0 / math.sqrt(c // heads), plan["rp"], plan["lt"], plan["stages"],
+        heads, d, 1.0 / math.sqrt(d), plan["rp"], plan["lt"], plan["stages"],
         plan["smem"], _build.stream_ptr(x2))
     _build.check(lib, rc, "motion attention (K4)")
-    (out,) = ln_gemm(o, None, None, [wo], [bo], res=[x2])
+    (out,) = ln_gemm(o, None, None, [wo], [bo], res=[x2] if residual else None)
     LAUNCHES += 1
     return out.reshape(x.shape)
 
 
 def motion_attention(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads: int,
-                     eps: float = 1e-5) -> torch.Tensor:
-    """x + W_o attn_frames(LN(x) * gamma + beta + pe) + b_o; pe (F, C)."""
+                     eps: float = 1e-5, residual: bool = True) -> torch.Tensor:
+    """x + W_o attn_frames(LN(x) * gamma + beta + pe) + b_o; pe (F, C).
+    `heads` of the weights' inner = wq.shape[0] columns; `residual=False`
+    (a head shard): W_o attn (+ b_o if given) alone."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no motion-attention kernel for device {x.device}")
     kernel = motion_attention_plain if x.device.type == "cpu" else _launch
-    args = (x, gamma, beta, pe, wq, wk, wv, wo, bo, heads, eps)
+    args = (x, gamma, beta, pe, wq, wk, wv, wo, bo, heads, eps, residual)
     if needs_grad(x, gamma, beta, pe, wq, wk, wv, wo, bo):
         return kernel_with_plain_vjp(kernel, motion_attention_plain, *args)
     return kernel(*args)

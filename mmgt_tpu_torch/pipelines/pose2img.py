@@ -21,6 +21,7 @@ from mmgt_tpu_torch.models.pose_guider import PoseGuider
 from mmgt_tpu_torch.models.unet3d import DenoisingUNet3D
 from mmgt_tpu_torch.models.unet_ref import ReferenceUNet2D
 from mmgt_tpu_torch.models.vae import AutoencoderKL
+from mmgt_tpu_torch.parallel.mesh import Mesh
 from mmgt_tpu_torch.pipelines.pose2vid import ModelBundle, materialize
 
 
@@ -34,6 +35,7 @@ class Pose2ImagePipeline(ModelBundle):
     pose_guider: PoseGuider
     scheduler: DDIMScheduler = dataclasses.field(
         default_factory=lambda: DDIMScheduler(beta_schedule="scaled_linear"))
+    mesh: Optional[Mesh] = None   # the image trainer's mesh (`shard_`)
 
     @classmethod
     def build(cls, dtype: torch.dtype = torch.bfloat16,

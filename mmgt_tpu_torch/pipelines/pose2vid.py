@@ -16,6 +16,15 @@
     clipped DDIM (`solver_tables_for` gives None);
   * `_decode`: VAE decode in fixed-size frame chunks.
 
+On a mesh (`mesh`, after `shard_(mesh)`): tensor parallelism runs inside
+the models; every rank prepares and decodes alike (the same seed gives the
+same latents), and each denoise group's windows split over the dp ranks
+with each window's CFG pair on one rank: a rank's UNet batch is [uncond of
+its windows ; cond of its windows]. A group whose window count dp does not
+divide is padded with repeats of its last window, whose results are
+dropped; the ranks' predictions are gathered by an `all_reduce` of a
+zero-filled buffer (exact).
+
 Frames come back as a device tensor (1, F, H, W, 3) in [0, 1] (or uint8);
 `.cpu()` brings them to the host.
 """
@@ -43,6 +52,8 @@ from mmgt_tpu_torch.models.unet_ref import ReferenceUNet2D
 from mmgt_tpu_torch.models.vae import AutoencoderKL
 from mmgt_tpu_torch.nn.layers import GroupNorm, LayerNorm
 from mmgt_tpu_torch.ops import launch_counts
+from mmgt_tpu_torch.parallel.collectives import all_reduce_
+from mmgt_tpu_torch.parallel.mesh import Mesh, shard_
 from mmgt_tpu_torch.pipelines.context import compute_context_schedule
 
 
@@ -83,10 +94,17 @@ def init_random_params(model: nn.Module, gen: torch.Generator, std: float = 0.02
 
 class ModelBundle:
     """What a Stage-2 pipeline knows of its models: the dataclass fields
-    named in MODEL_NAMES, their device and dtype (the denoiser's), and
-    seeded random weights."""
+    named in MODEL_NAMES, their device and dtype (the denoiser's), seeded
+    random weights, and the mesh they are sharded over."""
 
     MODEL_NAMES: Tuple[str, ...] = ()
+    mesh: Optional[Mesh] = None
+
+    def shard_(self, mesh: Optional[Mesh]):
+        """Keep this rank's tensor-parallel slices of the models (in place)
+        and run on `mesh` from now on. Returns the parameter specs."""
+        self.mesh = mesh
+        return shard_(self.models(), mesh)
 
     def models(self) -> Dict[str, nn.Module]:
         return {n: getattr(self, n) for n in self.MODEL_NAMES if getattr(self, n) is not None}
@@ -127,6 +145,8 @@ class Pose2VideoPipeline(ModelBundle):
     # synchronise after each phase; fill self.timings with its seconds and
     # self.phase_launches with the kernel launches it made
     profile_phases: bool = False
+    # the ("dp", "tp") mesh the models are sharded over (`shard_`)
+    mesh: Optional[Mesh] = None
 
     @classmethod
     def build(cls, dtype: torch.dtype = torch.bfloat16,
@@ -277,24 +297,44 @@ class Pose2VideoPipeline(ModelBundle):
         mb = _largest_divisor_at_most(w, self.window_microbatch or w)
         groups = w // mb
         pose_feat, audio_tokens = cond["pose_feat"], cond["audio_tokens"]
+        mesh = self.mesh
+        dp = 1 if mesh is None else mesh.dp
+        mb_l = -(-mb // dp)   # windows a rank denoises per group
+        ctx_cfg = cond["ctx_cfg"]
+        if dp > 1:
+            ctx_cfg = torch.cat([ctx_cfg[:1].repeat(mb_l, 1, 1),
+                                 ctx_cfg[mb:mb + 1].repeat(mb_l, 1, 1)], 0)
 
-        def denoise_group(lat_d, step_t, idx_g):
+        def denoise_windows(lat_d, step_t, idx_g):
+            n = idx_g.shape[0]
             flat = idx_g.reshape(-1)
-            lat_w = lat_d[flat].reshape(mb, ctx_len, h8, w8, 4)
-            pose_w = pose_feat[0][flat].reshape(mb, ctx_len, *pose_feat.shape[2:])
-            audio_w = audio_tokens[0][flat].reshape(mb, ctx_len, *audio_tokens.shape[2:])
+            lat_w = lat_d[flat].reshape(n, ctx_len, h8, w8, 4)
+            pose_w = pose_feat[0][flat].reshape(n, ctx_len, *pose_feat.shape[2:])
+            audio_w = audio_tokens[0][flat].reshape(n, ctx_len, *audio_tokens.shape[2:])
             mask_cfg = [
-                tuple(torch.cat([mm[flat].reshape(mb, ctx_len, -1)] * 2, 0) for mm in lv)
+                tuple(torch.cat([mm[flat].reshape(n, ctx_len, -1)] * 2, 0) for mm in lv)
                 for lv in cond["masks"]
             ]
-            t = torch.full((2 * mb,), step_t, dtype=torch.long, device=lat_d.device)
+            t = torch.full((2 * n,), step_t, dtype=torch.long, device=lat_d.device)
             pred = self.denoising_unet(
-                torch.cat([lat_w, lat_w], 0), t, cond["ctx_cfg"],
+                torch.cat([lat_w, lat_w], 0), t, ctx_cfg,
                 torch.cat([torch.zeros_like(audio_w), audio_w], 0),
                 torch.cat([pose_w, pose_w], 0), mask_cfg, cond["banks_kv"],
-                motion_scale, n_uncond=mb,
+                motion_scale, n_uncond=n,
             )
             return pred.float()
+
+        def denoise_group(lat_d, step_t, idx_g):
+            if dp == 1:
+                return denoise_windows(lat_d, step_t, idx_g)
+            # this rank's windows, the group padded with its last window
+            idx_p = torch.cat([idx_g, idx_g[-1:].expand(mb_l * dp - mb, ctx_len)], 0)
+            r = mesh.dp_rank
+            mine = denoise_windows(lat_d, step_t, idx_p[r * mb_l:(r + 1) * mb_l])
+            buf = mine.new_zeros((2, mb_l * dp, *mine.shape[1:]))
+            buf[:, r * mb_l:(r + 1) * mb_l] = mine.reshape(2, mb_l, *mine.shape[1:])
+            all_reduce_(buf, mesh.dp_group)
+            return buf[:, :mb].reshape(2 * mb, *mine.shape[1:])
 
         for s in range(num_steps):
             idx = windows[s]

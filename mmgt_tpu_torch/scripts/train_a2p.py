@@ -12,8 +12,14 @@ in f32, over epochs of a `GestureDataset` directory.
 1) steps; the metrics are logged after the first step and every tenth epoch,
 checkpoints (`utils/checkpoint.py`) every `checkpoint_every_epochs` epochs
 and at the end. A resumed run stops at the same total step as an
-uninterrupted one. f32 work runs in full f32, not TF32. One card; no
-mesh.
+uninterrupted one. f32 work runs in full f32, not TF32.
+
+Under `torchrun --nproc_per_node N` every rank is a data-parallel rank, as
+the JAX CLI's `create_mesh()`: the batch is max(batch_size // N * N, N)
+rows of the same data order, each rank keeps its rows, the gradients are
+averaged and the Adan and EMA state stays identical on every rank; rank 0
+alone logs and writes. A single process without torchrun trains on one
+card as before.
 """
 from __future__ import annotations
 
@@ -63,23 +69,26 @@ def run(smga, dataset, cfg, state=None, resume: bool = False, on_step=None):
     """Train `cfg.epochs` epochs of `dataset` (a `GestureDataset`) of
     max(len // batch_size, 1) steps each; `state` defaults to
     `smga.init_state()`, and `resume` first restores the latest checkpoint
-    of `cfg.checkpoint_dir`. Returns the state."""
+    of `cfg.checkpoint_dir`. On the SMGA's mesh the batch is rounded to
+    max(batch_size // dp * dp, dp) rows. Returns the state."""
     from mmgt_tpu_torch.training.loop import fit
     from mmgt_tpu_torch.utils.checkpoint import CheckpointManager
     from mmgt_tpu_torch.utils.metrics import MetricsLogger
 
-    dev = smga.device
+    dev, mesh = smga.device, smga.mesh
+    dp = 1 if mesh is None else mesh.dp
+    bs = max(cfg.batch_size // dp * dp, dp)
     state = smga.init_state() if state is None else state
-    mgr = CheckpointManager(cfg.checkpoint_dir)
+    mgr = CheckpointManager(cfg.checkpoint_dir, mesh=mesh)
     if resume and mgr.latest_step() is not None:
         print(f"resumed from step {smga.restore(state, mgr)}")
-    per_epoch = max(len(dataset) // cfg.batch_size, 1)
+    per_epoch = max(len(dataset) // bs, 1)
 
     def batches():
-        for raw in dataset.batches(cfg.batch_size, cfg.seed + state.step):
+        for raw in dataset.batches(bs, cfg.seed + state.step):
             yield {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
 
-    mlog = MetricsLogger(cfg.checkpoint_dir, "train_a2p")
+    mlog = MetricsLogger(cfg.checkpoint_dir, "train_a2p", enabled=mesh is None or mesh.rank == 0)
     try:
         return fit(smga, state, batches(), cfg.epochs * per_epoch, mgr, mlog,
                    cfg.checkpoint_every_epochs * per_epoch, dev, cfg.seed,
@@ -93,15 +102,19 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     from mmgt_tpu_torch.data.datasets import GestureDataset
     from mmgt_tpu_torch.device import disable_tf32
+    from mmgt_tpu_torch.parallel.mesh import create_mesh, destroy
 
     cfg = config_from_args(args)
     disable_tf32()
-    smga = build(cfg, args.device, cfg.seed)
+    mesh = create_mesh(device=args.device)
+    smga = build(cfg, mesh.device, cfg.seed)
+    smga.mesh = mesh
     ds = GestureDataset(cfg.data_dir, cfg.feature_type)
     print(f"dataset: {len(ds)} clips")
     t0 = time.time()
     state = run(smga, ds, cfg, resume=args.resume)
     print(f"done: step {state.step} in {time.time() - t0:.0f}s")
+    destroy(mesh)
     return 0
 
 

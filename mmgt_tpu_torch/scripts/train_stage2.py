@@ -8,15 +8,26 @@ records, 512^2, batch 1, the denoiser checkpointed.
         [--config cfg.json] [--weights_dir DIR] [--batch_size 1] \\
         [--max_steps N] [--checkpoint_dir DIR] [--size 512] [--resume] \\
         [--val_ref face.png --val_record clip.npz [--val_every 500]] \\
-        [--device cuda]
+        [--mesh_dp N] [--mesh_tp N] [--device cuda]
 
 `--meta`: JSON lists of packed .npz records (`TalkingVideoDataset`).
 `--weights_dir` loads every Stage-2 model and CLIP from a reference-layout
 directory (`utils/weights.load_all_weights`); without it the models have
 seeded random weights and the CLIP context is zeros. `--val_ref` and
 `--val_record` render a validation clip (20 DDIM steps) every
-`--val_every` steps into the checkpoint directory (cv2 writes it). One
-card; no mesh.
+`--val_every` steps into the checkpoint directory (cv2 writes it).
+
+On several cards, under torchrun (one rank a card, `cuda:LOCAL_RANK`):
+
+    torchrun --nproc_per_node N -m mmgt_tpu_torch.scripts.train_stage2 \\
+        --meta meta.json --mesh_tp 2 ...
+
+The mesh is the config's `mesh_dp` x `mesh_tp` (`--mesh_dp` / `--mesh_tp`
+override them; dp defaults to N / tp), as the JAX CLI's
+(`parallel/mesh.py`): the batch is max(batch_size, dp) rows, every rank
+reads the same data order and keeps its rows, and rank 0 alone logs and
+writes checkpoints. A single process started without torchrun trains on
+one card as before.
 """
 from __future__ import annotations
 
@@ -43,6 +54,8 @@ def parse_args(argv=None):
     ap.add_argument("--val_record", default=None,
                     help="validation .npz record (pose+masks+audio)")
     ap.add_argument("--val_every", type=int, default=500)
+    ap.add_argument("--mesh_dp", type=int, default=None, help="data-parallel ranks")
+    ap.add_argument("--mesh_tp", type=int, default=None, help="tensor-parallel ranks")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
@@ -52,7 +65,8 @@ def config_from_args(args):
 
     overrides = {k: v for k, v in (
         ("batch_size", args.batch_size), ("max_train_steps", args.max_steps),
-        ("checkpoint_dir", args.checkpoint_dir), ("meta_paths", args.meta)) if v is not None}
+        ("checkpoint_dir", args.checkpoint_dir), ("meta_paths", args.meta),
+        ("mesh_dp", args.mesh_dp), ("mesh_tp", args.mesh_tp)) if v is not None}
     if args.size:
         overrides["train_width"] = overrides["train_height"] = args.size
     return load_config(Stage2TrainConfig, args.config, **overrides)
@@ -61,7 +75,8 @@ def config_from_args(args):
 def build(cfg, device=None, seed: int = 0, weights_dir: Optional[str] = None):
     """(trainer, CLIP model or None): the video trainer in bf16 on `device`
     (the card unless the caller asks for the CPU), the denoiser
-    checkpointed, with the config's hyper-parameters."""
+    checkpointed, with the config's hyper-parameters; whole tensors (`main`
+    then keeps this rank's slices)."""
     from mmgt_tpu_torch.training.stage1 import SMGA
     from mmgt_tpu_torch.training.stage2 import Stage2Trainer
     from mmgt_tpu_torch.utils.weights import load_all_weights
@@ -86,21 +101,23 @@ def run(trainer, dataset, cfg, clip_model=None, state=None, resume: bool = False
     """Train until `cfg.max_train_steps` on batches of `dataset` (a
     `TalkingVideoDataset`); `state` defaults to `trainer.init_state()`, and
     `resume` first restores the latest checkpoint of `cfg.checkpoint_dir`.
-    Returns the state."""
+    On the trainer's mesh: batches of max(batch_size, dp) rows, the same
+    on every rank; rank 0 logs and writes. Returns the state."""
     from mmgt_tpu_torch.training.loop import fit
     from mmgt_tpu_torch.training.stage2 import encode_clip_batch
     from mmgt_tpu_torch.utils.checkpoint import CheckpointManager
     from mmgt_tpu_torch.utils.metrics import MetricsLogger
 
-    dev = trainer.pipeline.device
+    dev, mesh = trainer.pipeline.device, trainer.mesh
+    bs = max(cfg.batch_size, 1 if mesh is None else mesh.dp)
     state = trainer.init_state() if state is None else state
-    mgr = CheckpointManager(cfg.checkpoint_dir, max_to_keep=5)
+    mgr = CheckpointManager(cfg.checkpoint_dir, max_to_keep=5, mesh=mesh)
     if resume and mgr.latest_step() is not None:
         print(f"resumed from step {trainer.restore(state, mgr)}")
     as_t = lambda a: torch.from_numpy(a).to(dev)
 
     def batches():
-        for raw in dataset.batches(cfg.batch_size, cfg.seed + state.step):
+        for raw in dataset.batches(bs, cfg.seed + state.step):
             yield {
                 "pixel_values": as_t(raw["pixel_values"]), "ref_image": as_t(raw["ref_image"]),
                 # zeros without CLIP weights: permanent uncond-image dropout
@@ -109,7 +126,8 @@ def run(trainer, dataset, cfg, clip_model=None, state=None, resume: bool = False
                 "masks": [tuple(map(as_t, lv)) for lv in raw["masks"]],
             }
 
-    mlog = MetricsLogger(cfg.checkpoint_dir, "train_stage2")
+    mlog = MetricsLogger(cfg.checkpoint_dir, "train_stage2",
+                         enabled=mesh is None or mesh.rank == 0)
     try:
         return fit(trainer, state, batches(), cfg.max_train_steps, mgr, mlog,
                    cfg.checkpointing_steps, dev, cfg.seed, on_step=on_step)
@@ -146,8 +164,9 @@ def log_validation(pipe, cfg, ref_path: str, record_path: str, step: int) -> str
                   motion_scale=tuple(cfg.motion_scale),
                   generator=torch.Generator(device=dev).manual_seed(0))
     out = f"{cfg.checkpoint_dir}/val_{step}.mp4"
-    save_video(frames[0].float().cpu().numpy(), out, fps=25)
-    print(f"[val] wrote {out}")
+    if pipe.mesh is None or pipe.mesh.rank == 0:
+        save_video(frames[0].float().cpu().numpy(), out, fps=25)
+        print(f"[val] wrote {out}")
     return out
 
 
@@ -155,10 +174,13 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     from mmgt_tpu_torch.data.datasets import TalkingVideoDataset
     from mmgt_tpu_torch.device import disable_tf32
+    from mmgt_tpu_torch.parallel.mesh import create_mesh, destroy
 
     cfg = config_from_args(args)
     disable_tf32()
-    trainer, clip_model = build(cfg, args.device, cfg.seed, args.weights_dir)
+    mesh = create_mesh(dp=cfg.mesh_dp, tp=cfg.mesh_tp, device=args.device)
+    trainer, clip_model = build(cfg, mesh.device, cfg.seed, args.weights_dir)
+    trainer.pipeline.shard_(mesh)
     ds = TalkingVideoDataset(cfg.meta_paths, cfg.n_sample_frames, cfg.audio_margin)
     print(f"dataset: {len(ds)} clips")
     on_step = None
@@ -169,6 +191,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     state = run(trainer, ds, cfg, clip_model, resume=args.resume, on_step=on_step)
     print(f"done: step {state.step} in {time.time() - t0:.0f}s")
+    destroy(mesh)
     return 0
 
 

@@ -7,16 +7,22 @@ PoseGuider on (reference, target, pose) pairs, 256^2, batch 4.
     python -m mmgt_tpu_torch.scripts.train_stage2_image --meta meta.json \\
         [--config cfg.json] [--weights_dir DIR] [--batch_size 4] \\
         [--max_steps N] [--checkpoint_dir DIR] [--size 256] [--resume] \\
-        [--tiny] [--device cuda]
+        [--tiny] [--mesh_dp N] [--mesh_tp N] [--device cuda]
 
 `--meta`: JSON lists of packed .npz records (`data/datasets.py`,
 `HumanDanceDataset`). `--weights_dir` loads the VAE, ReferenceNet,
 PoseGuider and CLIP from a reference-layout directory
 (`utils/weights.load_all_weights`); the denoiser keeps its seeded random
 weights, as in the JAX CLI. Without CLIP weights the CLIP context is zeros.
-`--tiny` trains tiny nets (smoke runs and tests). One card; no mesh. Each
-step logs to `<checkpoint_dir>/train_stage2_image.jsonl`; checkpoints
+`--tiny` trains tiny nets (smoke runs and tests). Each step logs to
+`<checkpoint_dir>/train_stage2_image.jsonl`; checkpoints
 (`utils/checkpoint.py`) every `checkpointing_steps` and at the end.
+
+Under `torchrun --nproc_per_node N` it trains on the mesh of the config's
+`mesh_dp` x `mesh_tp` (`--mesh_dp` / `--mesh_tp`), as the video CLI
+(`scripts/train_stage2.py`): batches of max(batch_size, dp) rows, each
+rank's rows of the same data order, rank 0 alone logging and writing. A
+single process without torchrun trains on one card as before.
 """
 from __future__ import annotations
 
@@ -39,6 +45,8 @@ def parse_args(argv=None):
     ap.add_argument("--size", type=int, default=None, help="train resolution")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--tiny", action="store_true", help="tiny nets (smoke runs, tests)")
+    ap.add_argument("--mesh_dp", type=int, default=None, help="data-parallel ranks")
+    ap.add_argument("--mesh_tp", type=int, default=None, help="tensor-parallel ranks")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
@@ -48,7 +56,8 @@ def config_from_args(args):
 
     overrides = {k: v for k, v in (
         ("batch_size", args.batch_size), ("max_train_steps", args.max_steps),
-        ("checkpoint_dir", args.checkpoint_dir), ("meta_paths", args.meta)) if v is not None}
+        ("checkpoint_dir", args.checkpoint_dir), ("meta_paths", args.meta),
+        ("mesh_dp", args.mesh_dp), ("mesh_tp", args.mesh_tp)) if v is not None}
     if args.size:
         overrides["train_width"] = overrides["train_height"] = args.size
     return load_config(Stage2ImageTrainConfig, args.config, **overrides)
@@ -78,7 +87,8 @@ def build(cfg, device=None, seed: int = 0, weights_dir: Optional[str] = None,
           tiny: bool = False):
     """(trainer, CLIP model or None): the image trainer in bf16 on `device`
     (the card unless the caller asks for the CPU; f32 when `tiny`) with the
-    config's hyper-parameters."""
+    config's hyper-parameters; whole tensors (`main` then keeps this rank's
+    slices)."""
     from mmgt_tpu_torch.device import resolve_device
     from mmgt_tpu_torch.training.stage2_image import Stage2ImageTrainer
 
@@ -118,27 +128,30 @@ def run(trainer, dataset, cfg, clip_model=None, state=None, resume: bool = False
     """Train until `cfg.max_train_steps` on batches of `dataset` (a
     `HumanDanceDataset`); `state` defaults to `trainer.init_state()`, and
     `resume` first restores the latest checkpoint of `cfg.checkpoint_dir`.
-    Returns the state."""
+    On the trainer's mesh: batches of max(batch_size, dp) rows, the same
+    on every rank; rank 0 logs and writes. Returns the state."""
     from mmgt_tpu_torch.training.loop import fit
     from mmgt_tpu_torch.training.stage2 import encode_clip_batch
     from mmgt_tpu_torch.utils.checkpoint import CheckpointManager
     from mmgt_tpu_torch.utils.metrics import MetricsLogger
 
-    dev = trainer.pipeline.device
+    dev, mesh = trainer.pipeline.device, trainer.mesh
+    bs = max(cfg.batch_size, 1 if mesh is None else mesh.dp)
     state = trainer.init_state() if state is None else state
-    mgr = CheckpointManager(cfg.checkpoint_dir, max_to_keep=5)
+    mgr = CheckpointManager(cfg.checkpoint_dir, max_to_keep=5, mesh=mesh)
     if resume and mgr.latest_step() is not None:
         print(f"resumed from step {trainer.restore(state, mgr)}")
 
     def batches():
-        for raw in dataset.batches(cfg.batch_size, cfg.seed + state.step):
+        for raw in dataset.batches(bs, cfg.seed + state.step):
             batch = {k: torch.from_numpy(raw[k]).to(dev)
                      for k in ("tgt_image", "ref_image", "tgt_pose")}
             batch["clip_embed"] = encode_clip_batch(clip_model,
                                                     torch.from_numpy(raw["clip_image"]).to(dev))
             yield batch
 
-    mlog = MetricsLogger(cfg.checkpoint_dir, "train_stage2_image")
+    mlog = MetricsLogger(cfg.checkpoint_dir, "train_stage2_image",
+                         enabled=mesh is None or mesh.rank == 0)
     try:
         return fit(trainer, state, batches(), cfg.max_train_steps, mgr, mlog,
                    cfg.checkpointing_steps, dev, cfg.seed, on_step=on_step)
@@ -150,15 +163,19 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     from mmgt_tpu_torch.data.datasets import HumanDanceDataset
     from mmgt_tpu_torch.device import disable_tf32
+    from mmgt_tpu_torch.parallel.mesh import create_mesh, destroy
 
     cfg = config_from_args(args)
     disable_tf32()
-    trainer, clip_model = build(cfg, args.device, cfg.seed, args.weights_dir, args.tiny)
+    mesh = create_mesh(dp=cfg.mesh_dp, tp=cfg.mesh_tp, device=args.device)
+    trainer, clip_model = build(cfg, mesh.device, cfg.seed, args.weights_dir, args.tiny)
+    trainer.pipeline.shard_(mesh)
     ds = HumanDanceDataset(cfg.meta_paths, cfg.sample_margin)
     print(f"dataset: {len(ds)} records")
     t0 = time.time()
     state = run(trainer, ds, cfg, clip_model, resume=args.resume)
     print(f"done: step {state.step} in {time.time() - t0:.0f}s")
+    destroy(mesh)
     return 0
 
 

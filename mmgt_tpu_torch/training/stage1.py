@@ -9,6 +9,11 @@ applied after the Adan update; it starts equal to the parameters)
 The parameters are trained in place in `model`; `SMGATrainState` holds the
 EMA copies and the optimizer. All randomness of a step is drawn up front
 (`GestureDiffusionSchedule.training_draws`), so a test can feed JAX's.
+
+Data parallelism (`mesh`, dp only, as `scripts/train_a2p.py:57-85`): a
+step takes the global batch and its draws, keeps this rank's rows,
+averages the gradients over dp, and runs the same Adan and EMA update on
+every rank, so their state stays identical.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ import torch
 from mmgt_tpu_torch.device import resolve_device
 from mmgt_tpu_torch.diffusion.gesture import GestureDiffusionSchedule
 from mmgt_tpu_torch.models.smga import NFEATS, GestureDecoder
+from mmgt_tpu_torch.parallel.collectives import all_reduce_many
+from mmgt_tpu_torch.parallel.mesh import Mesh, dp_mean, shard_batch
 from mmgt_tpu_torch.training.adan import Adan
 
 HORIZON = 80  # 3.2 s x 25 fps (SMGA.py:64-66)
@@ -49,6 +56,7 @@ class SMGA:
     weight_decay: float = 0.02
     ema_decay: float = 0.9999
     cond_drop_prob: float = 0.25
+    mesh: Optional[Mesh] = None          # data parallel over its "dp" axis
 
     def __post_init__(self):
         if self.feature_type not in ("wavlm", "baseline"):
@@ -126,11 +134,17 @@ class SMGA:
         its six components."""
         if draws is None:
             draws = self.draws(batch["keypoints"].shape[0], generator)
+        batch, draws = shard_batch(self.mesh, batch), shard_batch(self.mesh, draws)
         loss, comps = self.loss_fn(batch, draws)
         params = list(state.params.values())
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         # a parameter the step does not reach gets a zero gradient, as in JAX
-        state.opt.step([torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)])
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if self.mesh is not None and self.mesh.dp > 1:
+            grads = [g.contiguous() for g in grads]
+            all_reduce_many(grads, self.mesh.dp_group)
+            torch._foreach_div_(grads, float(self.mesh.dp))
+        state.opt.step(grads)
         del grads
         with torch.no_grad():
             d = self.ema_decay
@@ -138,7 +152,8 @@ class SMGA:
             torch._foreach_mul_(ema, d)  # e d + p (1 - d)
             torch._foreach_add_(ema, torch._foreach_mul(params, 1.0 - d))
         state.step += 1
-        return {"loss": loss.detach(), **{k: v.detach() for k, v in comps.items()}}
+        return dp_mean(self.mesh, {"loss": loss.detach(),
+                                    **{k: v.detach() for k, v in comps.items()}})
 
     def checkpoint_tree(self, state: SMGATrainState) -> Dict[str, Union[torch.Tensor, int]]:
         """Everything a resume needs, by name: the parameters, the EMA,

@@ -24,6 +24,17 @@ trailing underscore, so the mid block's motion module stays frozen.
 
 `encode_clip_batch` turns a dataset's `clip_image` into the trainers'
 `clip_embed`.
+
+On a mesh (the pipeline's `mesh`, its models sharded by `shard_`), as the
+JAX CLIs' jit over sharded state and batch: a step takes the GLOBAL batch,
+draws its random numbers for the whole batch from the one generator, and
+keeps this dp rank's rows, so dp = 2 computes what dp = 1 does on the same
+batch. The accumulated gradients are averaged over dp before the clip;
+the global norm sums the squares of the tp-sharded tensors over tp and
+counts the replicated ones once; AdamW runs on the local shards (its
+moments follow `opt_state_shardings`). `checkpoint_tree` gathers every
+sharded tensor to its whole size, so a checkpoint does not depend on the
+world size, and `restore` keeps this rank's slice of each.
 """
 from __future__ import annotations
 
@@ -34,6 +45,16 @@ import torch
 
 from mmgt_tpu_torch.diffusion.ddim import DDIMScheduler
 from mmgt_tpu_torch.diffusion.losses import min_snr_weight
+from mmgt_tpu_torch.parallel.collectives import all_reduce_, all_reduce_many
+from mmgt_tpu_torch.parallel.mesh import (
+    dp_mean,
+    empty_full,
+    full_tensor,
+    local_slice,
+    opt_state_shardings,
+    param_shardings,
+    shard_batch,
+)
 from mmgt_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline
 from mmgt_tpu_torch.utils.convert import map_unet2d, map_unet3d
 
@@ -184,6 +205,16 @@ class F32MasterAdamW:
     tensor the loss does not reach gets a zero gradient (and so weight
     decay only), as in JAX."""
 
+    @property
+    def mesh(self):
+        return self.pipeline.mesh
+
+    def specs(self) -> Dict[str, object]:
+        """{"<model>.<key>": its TPShard or None} (`param_shardings`)."""
+        if self.mesh is None:
+            return {}
+        return param_shardings(self.mesh, self.pipeline.models())
+
     def init_state(self) -> TrainState:
         trainable, frozen = self.partition()
         for p in frozen.values():
@@ -199,9 +230,12 @@ class F32MasterAdamW:
     def train_step(self, state: TrainState, batch: Dict,
                    draws: Optional[Dict[str, torch.Tensor]] = None,
                    generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """One step on `state`, in place; returns the step's metrics."""
+        """One step on `state`, in place; returns the step's metrics. On a
+        mesh `batch` and `draws` are the global batch's; each dp rank keeps
+        its rows, and the metrics are the dp mean."""
         if draws is None:
             draws = self.batch_draws(batch, generator)
+        batch, draws = shard_batch(self.mesh, batch), shard_batch(self.mesh, draws)
         names = list(state.trainable)
         loss, metrics = self.loss_fn(batch, draws)
         grads = torch.autograd.grad(loss, [state.trainable[n] for n in names], allow_unused=True)
@@ -213,16 +247,29 @@ class F32MasterAdamW:
         state.step += 1
         if state.micro == self.gradient_accumulation_steps:
             self._apply(state, names)
-        return metrics
+        return dp_mean(self.mesh, metrics)
 
     @torch.no_grad()
     def _apply(self, state: TrainState, names: List[str]) -> None:
         """Mean of the accumulated gradients -> global-norm clip -> AdamW on
         the f32 masters -> the working weights."""
         grads = [state.grad_acc[n] for n in names]
+        mesh = self.mesh
+        dp = 1 if mesh is None else mesh.dp
+        if dp > 1:
+            all_reduce_many(grads, mesh.dp_group)
         for g in grads:
-            g.div_(self.gradient_accumulation_steps)
-        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            g.div_(self.gradient_accumulation_steps * dp)
+        if mesh is None or mesh.tp == 1:
+            norm = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        else:
+            specs = self.specs()
+            sq = [torch.linalg.vector_norm(g) ** 2 for g in grads]
+            zero = grads[0].new_zeros(())
+            sharded = sum((q for n, q in zip(names, sq) if specs[n] is not None), zero)
+            whole = sum((q for n, q in zip(names, sq) if specs[n] is None), zero)
+            norm = torch.sqrt(all_reduce_(sharded.reshape(1), mesh.tp_group)[0] + whole)
         scale = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
                             self.max_grad_norm / norm)
         torch._foreach_mul_(grads, scale)
@@ -232,10 +279,7 @@ class F32MasterAdamW:
             state.grad_acc[n].zero_()
         state.micro = 0
 
-    def checkpoint_tree(self, state: TrainState) -> Dict[str, Union[torch.Tensor, int]]:
-        """Everything a resume needs, by name: the step, the working
-        weights, the f32 masters, AdamW's moments and step, the frozen
-        weights and, with gradient accumulation, the partial sums."""
+    def _local_tree(self, state: TrainState) -> Dict[str, Union[torch.Tensor, int]]:
         opt = state.optimizer
         tree: Dict[str, Union[torch.Tensor, int]] = {"step": state.step,
                                                      "adamw/step": opt.step_count}
@@ -248,10 +292,51 @@ class F32MasterAdamW:
             tree.update({f"grad_acc/{n}": g for n, g in state.grad_acc.items()})
         return tree
 
+    def _entry_specs(self, state: TrainState) -> Dict[str, object]:
+        """The spec of each sharded entry of `_local_tree` (an absent key is
+        replicated): the per-parameter state takes its parameter's
+        (`opt_state_shardings`)."""
+        specs = self.specs()
+        out = opt_state_shardings({n: specs[n] for n in state.trainable},
+                                  ("trainable", "master", "adamw/m", "adamw/v", "grad_acc"))
+        out.update({f"frozen/{n}": specs[n] for n in state.frozen})
+        return out
+
+    def checkpoint_tree(self, state: TrainState) -> Dict[str, Union[torch.Tensor, int]]:
+        """Everything a resume needs, by name: the step, the working
+        weights, the f32 masters, AdamW's moments and step, the frozen
+        weights and, with gradient accumulation, the partial sums. On a
+        mesh with tp > 1 each sharded tensor is gathered to its whole size,
+        one at a time (a collective every rank takes part in): rank 0, which
+        writes, keeps it on the host; the other ranks get a `meta` tensor
+        of that size."""
+        tree = self._local_tree(state)
+        mesh = self.mesh
+        if mesh is None or mesh.tp == 1:
+            return tree
+        for k, spec in self._entry_specs(state).items():
+            if spec is not None and k in tree:
+                whole = full_tensor(tree[k], spec, mesh)
+                tree[k] = whole.cpu() if mesh.rank == 0 else whole.to("meta")
+        return tree
+
     def restore(self, state: TrainState, manager, step: Optional[int] = None) -> int:
         """Load checkpoint `step` (default: the latest) of `manager` into
-        `state` in place; returns the restored step."""
-        got = manager.restore(self.checkpoint_tree(state), step)
+        `state` in place; each sharded tensor is read whole on the host and
+        this rank's slice copied in. Returns the restored step."""
+        local = self._local_tree(state)
+        mesh = self.mesh
+        specs = {} if mesh is None or mesh.tp == 1 else self._entry_specs(state)
+        sharded = [k for k in local if specs.get(k) is not None]
+        target = dict(local)
+        for k in sharded:
+            target[k] = empty_full(local[k], specs[k], mesh, device="cpu")
+        got = manager.restore(target, step)
+        with torch.no_grad():
+            for k in sharded:
+                whole = got.pop(k)
+                del target[k]
+                local[k].copy_(local_slice(whole, specs[k], mesh))
         state.step, state.micro = got["step"], got.get("micro", 0)
         state.optimizer.step_count = got["adamw/step"]
         return state.step

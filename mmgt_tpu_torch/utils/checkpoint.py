@@ -18,6 +18,11 @@ ints. JAX's orbax checkpoints are not read.
 
 Pruning after each save: the newest `max_to_keep` files stay, and so does
 every older one whose step is a multiple of `keep_period` (orbax's rule).
+
+On a mesh (`mesh`), every rank calls `save` with the same whole-size tree
+(the trainers gather their shards first); rank 0 alone writes and prunes,
+and the others wait until the file is complete. Every rank restores from
+the same path, which must be one the ranks share.
 """
 from __future__ import annotations
 
@@ -41,11 +46,12 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: Optional[int] = 5,
-                 keep_period: Optional[int] = None):
+                 keep_period: Optional[int] = None, mesh=None):
         self.directory = Path(directory)
         self.directory.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.keep_period = keep_period
+        self.mesh = mesh
 
     def path(self, step: int) -> Path:
         return self.directory / f"ckpt-{step}.ckpt"
@@ -60,7 +66,11 @@ class CheckpointManager:
     # ---------------------------------------------------------------- save
     def save(self, step: int, tree: Tree) -> Path:
         """Write `tree` as checkpoint `step` (through a temporary file, so a
-        cut write leaves no checkpoint behind), then prune."""
+        cut write leaves no checkpoint behind), then prune; on a mesh rank
+        0 writes and every rank returns once the file is there."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            self.mesh.barrier()
+            return self.path(step)
         entries, offset = [], 0
         for name, value in tree.items():
             if isinstance(value, torch.Tensor):
@@ -83,6 +93,8 @@ class CheckpointManager:
                 f.write(memoryview(t.view(torch.uint8).numpy()))
         os.replace(tmp, self.path(step))
         self._prune()
+        if self.mesh is not None:
+            self.mesh.barrier()
         return self.path(step)
 
     def _prune(self) -> None:

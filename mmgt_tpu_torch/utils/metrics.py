@@ -96,14 +96,21 @@ def clip_identity_drift(frames_a: np.ndarray, frames_b: np.ndarray, clip_model,
 
 
 class MetricsLogger:
-    def __init__(self, out_dir: str, name: str = "metrics", echo_every: int = 50):
+    def __init__(self, out_dir: str, name: str = "metrics", echo_every: int = 50,
+                 enabled: bool = True):
+        """`enabled=False` (the ranks of a mesh other than 0): logs nothing."""
         self.path = Path(out_dir) / f"{name}.jsonl"
-        self.path.parent.mkdir(parents=True, exist_ok=True)
-        self._fh = open(self.path, "a")
+        self.enabled = enabled
+        self._fh = None
+        if enabled:
+            self.path.parent.mkdir(parents=True, exist_ok=True)
+            self._fh = open(self.path, "a")
         self.echo_every = echo_every
         self._t0 = time.time()
 
     def log(self, step: int, metrics: Dict[str, Any], echo: Optional[bool] = None):
+        if not self.enabled:
+            return
         rec = {"step": int(step), "time": round(time.time() - self._t0, 2)}
         for k, v in metrics.items():
             try:
@@ -118,4 +125,5 @@ class MetricsLogger:
             print(f"[{rec['time']:.0f}s] {kv}", file=sys.stderr)
 
     def close(self):
-        self._fh.close()
+        if self._fh is not None:
+            self._fh.close()

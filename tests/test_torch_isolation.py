@@ -46,7 +46,9 @@ new = {"mmgt_tpu_torch.config", "mmgt_tpu_torch.data.dsp", "mmgt_tpu_torch.data.
        "mmgt_tpu_torch.utils.onnx_exec", "mmgt_tpu_torch.data.separator",
        "mmgt_tpu_torch.models.dwpose", "mmgt_tpu_torch.data.dwpose_infer",
        "mmgt_tpu_torch.models.motion_autoencoder", "mmgt_tpu_torch.scripts.prepare_stage1",
-       "mmgt_tpu_torch.scripts.prepare_stage2", "mmgt_tpu_torch.scripts.verify_weights"}
+       "mmgt_tpu_torch.scripts.prepare_stage2", "mmgt_tpu_torch.scripts.verify_weights",
+       "mmgt_tpu_torch.parallel", "mmgt_tpu_torch.parallel.mesh",
+       "mmgt_tpu_torch.parallel.collectives", "mmgt_tpu_torch.parallel.launch"}
 assert new <= set(names), sorted(new - set(names))
 """
 

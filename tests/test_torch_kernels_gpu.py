@@ -283,6 +283,48 @@ def test_motion_attention_kernel_tile_edges(gen, shape):
     _check(got, M.motion_attention_plain(*args))
 
 
+# a head shard under tensor parallelism: H_local heads of d columns, q/k/v
+# (H_local d, C), W_o (C, H_local d), no residual and no bias (tp = 2 at
+# levels 0 and 1: 4 heads of 40 and 80; tp = 4 at level 0: 2 heads of 40)
+@pytest.mark.parametrize("shape,heads", [((2, 12, 200, 320), 4), ((2, 16, 64, 640), 4),
+                                         ((1, 12, 203, 320), 2), ((2, 12, 65, 1280), 4)])
+def test_motion_attention_kernel_head_shard(gen, shape, heads):
+    c = shape[-1]
+    d = c // 8
+    inner = heads * d
+    x = _bf(gen, *shape)
+    g, b = 1 + _bf(gen, c, scale=0.1), _bf(gen, c, scale=0.1)
+    pe = M.sinusoidal_positions(32, c, "cuda")[: shape[1]]
+    ws = [_bf(gen, inner, c, scale=1 / math.sqrt(c)) for _ in range(3)]
+    wo = _bf(gen, c, inner, scale=1 / math.sqrt(inner))
+    args = (x, g, b, pe, *ws, wo, None, heads, 1e-5, False)
+    ops.reset_launch_counts()
+    got = M.motion_attention(*args)
+    assert ops.launch_counts()["motion_attention"] == 1
+    assert got.shape == x.shape
+    _check(got, M.motion_attention_plain(*args))
+
+
+# K3 on the tp shard shapes: level-0 q/k/v at tp = 2 (3 x 160) and tp = 4
+# (3 x 80, a partial 160-column tile), the GEGLU half-pairs (1280, 640)
+# with bias, level-2 audio q at tp = 2 (3 x 640 of K = 1280)
+@pytest.mark.parametrize("m,k,outs,bias", [(48 * 512, 320, (160, 160, 160), False),
+                                           (48 * 512, 320, (80, 80, 80), False),
+                                           (12 * 4096, 320, (1280,), True),
+                                           (12 * 4096, 320, (640,), True),
+                                           (24 * 256, 1280, (640, 640, 640), False)])
+def test_ln_projections_kernel_shard_shapes(gen, m, k, outs, bias):
+    x = _bf(gen, m, k)
+    g, b = 1 + _bf(gen, k, scale=0.1), _bf(gen, k, scale=0.1)
+    ws = [_bf(gen, n, k, scale=1 / math.sqrt(k)) for n in outs]
+    bs = [_bf(gen, n, scale=0.1) if bias else None for n in outs]
+    before = L.LAUNCHES
+    got = L.ln_projections(x, g, b, ws, bs)
+    assert L.LAUNCHES == before + 1
+    for gt, want in zip(got, L.ln_projections_plain(x, g, b, ws, bs)):
+        _check(gt, want)
+
+
 # ragged Sq / Skv against the 128-query and 128- or 64-key tiles, kv_lens
 # ending inside a tile, and rows with kv_len = 0
 @pytest.mark.parametrize("d,sq,skv,lens", [(40, 300, 557, [557, 123]), (40, 200, 300, [300, 0]),

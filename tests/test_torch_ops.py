@@ -167,6 +167,29 @@ def test_motion_attention_64_tokens_matches_reference():
     close(_port_motion(x, g, beta, pe, ws, bo, 8), want, **TOL)
 
 
+@pytest.mark.parametrize("tp", [2, 4])
+def test_motion_attention_head_shards_sum_to_pallas(tp):
+    """Under tensor parallelism each rank runs the plain K4 on its heads
+    (q/k/v rows and W_o columns of its slice), without residual and bias;
+    the partial sums + b_o + x equal the JAX kernel's whole output (TOL)."""
+    rng = np.random.default_rng(12)
+    c, heads = 64, 8
+    x, g, beta, pe, ws, bo = _motion_args(rng, 2, 4, 128, c)
+    want = JM._motion_fwd(jnp.asarray(x), jnp.asarray(g), jnp.asarray(beta), jnp.asarray(pe),
+                          *map(jnp.asarray, ws), jnp.asarray(bo), heads, 1e-5, interpret=True)
+    n = c // tp
+    got = t(x) + t(bo)
+    for r in range(tp):
+        cols = slice(r * n, (r + 1) * n)
+        wq, wk, wv = (t(w[:, cols].T.copy()) for w in ws[:3])
+        wo = t(ws[3][cols].T.copy())  # W_o (C, inner): the shard's input columns
+        part = M.motion_attention(t(x), t(g), t(beta), t(pe), wq, wk, wv, wo, None,
+                                  heads // tp, 1e-5, residual=False)
+        assert part.shape == x.shape
+        got = got + part
+    close(got, want, **TOL)
+
+
 def test_sinusoidal_positions_match():
     from mmgt_tpu.models.blocks import sinusoidal_positions
 

@@ -99,6 +99,20 @@ def test_k4_plan_level0_two_blocks_an_sm():
     assert plan["smem"] <= M.TWO_BLOCKS
 
 
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_k4_plan_head_shards(tp):
+    """A head shard (8 // tp heads of d = C / 8, inner = C / tp) gets the
+    plan of its head dim, as the whole layer's: the plan depends on d, F
+    and L only."""
+    for c in (320, 640, 1280):
+        for f in (12, 16):
+            whole = M.attn_plan(f, 4096 // (c // 320) ** 2, c, 8)
+            shard = M.attn_plan(f, 4096 // (c // 320) ** 2, c, 8 // tp, c // tp)
+            assert shard == whole, (c, f, tp)
+    with pytest.raises(ValueError):
+        M.attn_plan(12, 64, 320, 3, 160)   # 160 columns are not 3 heads
+
+
 @pytest.mark.parametrize("f,l,c,heads", [(33, 64, 320, 8), (12, 64, 320, 7), (12, 64, 64, 8),
                                          (12, 64, 4096, 16), (12, 64, 1920, 8)])
 def test_k4_plan_raises_on_shapes_it_does_not_take(f, l, c, heads):

@@ -286,6 +286,30 @@ def test_load_all_weights_drill_matches_jax(tmp_path, source, capsys):
         assert torch.equal(v, written[k].to(torch.float16).float()), k
 
 
+def test_load_all_weights_on_a_mesh_keeps_this_ranks_slices(tmp_path, source):
+    """As the training CLIs load on a mesh (tp = 2, rank 1; no process
+    group: neither step issues a collective): `load_all_weights` loads the
+    whole tensors, then `shard_` keeps rank 1's tensor-parallel slice of
+    every sharded weight, bitwise."""
+    from mmgt_tpu_torch.parallel.mesh import Mesh, local_slice
+
+    _write_weights_dir(tmp_path, *source)
+    mesh = Mesh(world=2, rank=1, dp=1, tp=2, device=torch.device("cpu"))
+    pipe = _fresh(torch.bfloat16)
+    out = PW.load_all_weights(str(tmp_path), pipe, SMGA(), device="cpu")
+    pipe.shard_(mesh)
+    assert out["random_fill"] == [] and pipe.mesh is mesh
+    from mmgt_tpu_torch.parallel.mesh import param_shardings
+
+    specs = param_shardings(mesh, pipe.models())
+    assert sum(s is not None for s in specs.values()) > 0
+    for name, model in pipe.models().items():
+        written = getattr(source[0], name).state_dict()
+        for k, v in model.state_dict().items():
+            want = written[k].to(torch.float16).to(torch.bfloat16)
+            assert torch.equal(v, local_slice(want, specs[f"{name}.{k}"], mesh)), (name, k)
+
+
 def test_partial_checkpoint_random_fills_in_both(tmp_path, source, capsys):
     _write_weights_dir(tmp_path, *source, partial=True)
     pipe = _fresh(torch.float32)
