@@ -59,6 +59,15 @@ Phases, in order; any failure exits non-zero:
      weights and draws, three ways as in 5; the keypoints and the frames
      on the card within SMALL_ERR_FACTOR x the plain error against CPU
      f32;
+  7b. long240: the audio2vid of 6 on a LONG_SECONDS (9.6 s) clip: 3
+     chained Stage-1 slices with motion selection over 3 candidates, 240
+     frames, 30 context windows fused each Stage-2 step (the JAX bench's
+     long240 row): finite (240, 512, 512, 3) frames and (240, 402)
+     keypoints, the seam check of tests/test_long_video.py (the per-frame
+     L1 step at frames 80 and 160 at most SEAM_FACTOR x the median step +
+     1e-3), K1-K4 launched (K5 not), K2 in the audio encoding (wav2vec2's
+     conv 0 at (1, 30719, 512) f32); the seconds, launches and peak memory
+     of each phase;
   8. dpm: Pose2VideoPipeline as in 4 with DPM-Solver++(2M) from
      `make_scheduler` at DPM_STEPS (15) steps: finite frames, K1-K4
      launched (K5 not), the seconds per phase and the peak memory;
@@ -71,8 +80,15 @@ Phases, in order; any failure exits non-zero:
  11. lmks2vid: Lmks2VideoPipeline at full width (main's pipeline and two
      guiders), 16 frames, STEPS steps: finite frames, K1-K4 launched; then
      lmks2vid_small, a tiny one three ways;
+ 11b. fewstep: the few-step quality tool's `main`
+     (`python -m mmgt_tpu_torch.tools.fewstep_quality`) in this process:
+     full width, 512^2, 16 frames, DDIM-200 as the ground truth against
+     DDIM-25/15 and DPM++-25/15/12 (relative latent error, PSNR, SSIM,
+     flicker, CLIP drift, seconds): every row finite, each sampler's error
+     falling as its steps rise, DPM++-15 below DDIM-15; K1-K4 launched;
  12. weights: a reference-layout weights directory written in fp16 from
-     seeded full-width port modules (net-*.pth with the Net wrapper's
+     seeded full-width port modules by the synth_weights tool
+     (`mmgt_tpu_torch/tools/synth_weights.py`; net-*.pth with the Net wrapper's
      prefixes, the SD VAE, an SMGA checkpoint with EMA weights, `module.`
      and packed q/k/v, CLIP, wav2vec2 and WavLM with weight-normed
      positional convs, WavLM in its {"model", "cfg"} wrapper), after a
@@ -84,7 +100,7 @@ Phases, in order; any failure exits non-zero:
      frames, K1-K4 launched; then the video and image training CLIs'
      `build` with the directory: their models equal to the loaded ones,
      a CLIP model returned.
-     The directory stays for 12b and 12c;
+     The directory stays for 12b, 12c and 12d;
  12b. preprocess: the preprocessing path at the published widths, f32
      with TF32 off: YOLOX-L and RTMPose-L (DW-LL) with seeded weights and
      BN statistics (the objectness head damped, PRE_OBJ_BIAS) as
@@ -104,10 +120,15 @@ Phases, in order; any failure exits non-zero:
      `EmbeddingNet` at (80, 402), card against CPU; the prepare_stage1
      CLI with the directory's WavLM checkpoint and prepare_stage2
      --from_keypoints on PRE_CLIPS clips; none of K1-K5 launched;
- 12c. verify_weights: the verify CLI with --forward on that directory:
+ 12c. release: `python -m mmgt_tpu_torch.tools.release_check` on that
+     directory in a process of its own, at its defaults (verify_weights,
+     then audio2vid at 512^2, 80 frames, DPM++ 15 steps, and its mp4):
+     exit 0, every stage ok, a non-empty mp4, K1-K4 launched (its
+     report's counts); the stage seconds;
+ 12d. verify_weights: the verify CLI with --forward on that directory:
      all 13 entries [ok], 12 nets run on the card; then it is removed.
-     Phases 8, 10, 11, 12's CLI run and 12c record their launches and
-     replay each signature not replayed before, as 6 does;
+     Phases 7b, 8, 10, 11, 11b, 12's CLI run and 12d record their
+     launches and replay each signature not replayed before, as 6 does;
  13. train: Stage2Trainer at full width, 512x512, 12 frames, batch 1,
      remat, TRAIN_STEPS steps on a seeded random batch: finite losses, the
      f32 masters of every trainable tensor moved, every frozen tensor
@@ -141,6 +162,17 @@ Phases, in order; any failure exits non-zero:
      kernel launched (its attention is 80 tokens, plain math); then one
      more step on the card against the same step on the CPU in f32
      (A2P_LOSS_TOL, A2P_GRAD_TOL).
+ 17b. soak: JAX's overfit tests (tests/test_training_soak.py) at full
+     width. `Stage2Trainer.build(bf16, remat=True)` at SOAK_SIZE^2 (256;
+     the resolution is the cut), 12 frames, batch 1, SOAK_STEPS (52) steps
+     on one fixed jittered batch with 4 fixed (t, noise) draws in turn, lr
+     2e-4, CFG dropout and noise offset off: every loss finite, each
+     draw's loss lower at its last step than at its first, K5 launched in
+     every step; the mean drop printed beside JAX's tiny-width 20 % (a
+     prediction, not a gate); its launch signatures replayed. Then SMGA at
+     the reference's widths, f32, batch 1, SMGA_SOAK_STEPS (120) steps, lr
+     3e-4, no condition dropout, 4 fixed draws: the mean loss of the last 4
+     steps below 1 / SMGA_SOAK_DROP of the first 4's, no kernel launched;
  18. mesh: the distributed layer (`mmgt_tpu_torch/parallel/`) on the one
      card. Single-process references first: main's pipeline call, the same
      call at one window a UNet call, and one full-width video train step
@@ -174,10 +206,11 @@ Then the `kernels` JSON line, the card line, and the result line.
     python3 chip_smoke.py profile    # build, then profile a denoise step
                                      # and the train steps
 
-profiles one full-width denoise step, one full-width train step, one
-image-pretrain step and one SMGA step instead (device time by kernel family, idle share, and the GroupNorm
-calls of each step with K2's plans and their bytes bound) and prints no
-`kernels` line.
+profiles one full-width denoise step, the VAE decode chunk (8 frames,
+64^2 latents to 512^2), one full-width train step, one image-pretrain
+step and one SMGA step instead (device time by kernel family, idle share,
+and the GroupNorm calls of each with K2's plans and their bytes bound)
+and prints no `kernels` line.
 
     python3 chip_smoke.py mesh       # build, then phase 18 alone
 
@@ -247,6 +280,20 @@ PRE_REL_TOL = 1e-3
 # coordinates in pixels; 3 of 134 may differ more (a SimCC argmax between
 # bins equal to rounding may flip)
 PRE_KP_TOL = 1e-2
+# long240: a 9.6 s clip, 3 chained Stage-1 slices, 240 frames (the JAX
+# bench's long240 row); the seam check of tests/test_long_video.py
+LONG_SECONDS = 9.6
+LONG_FRAMES = 240
+SEAM_FACTOR = 5.0
+# soak: JAX's overfit tests (tests/test_training_soak.py) at full width;
+# Stage 2 at 256^2 (the resolution is the cut, the widths are kept)
+SOAK_SIZE = 256
+SOAK_STEPS = 52
+SOAK_LR = 2e-4
+SOAK_DROP_PREDICTED = 0.20    # JAX's tiny-width criterion, printed, not a gate
+SMGA_SOAK_STEPS = 120
+SMGA_SOAK_LR = 3e-4
+SMGA_SOAK_DROP = 4.0          # the SMGA loss falls by more than this factor
 # SMGA training at the reference's batch; the card-vs-CPU step on fewer rows
 A2P_BATCH = 128
 A2P_STEPS = 3
@@ -785,7 +832,24 @@ def run_profile(torch, Pose2VideoPipeline):
     report_profile(prof, "one denoise step, 2 windows x CFG = 48 frame rows, 512x512",
                    wall_ms)
     report_k2_calls(torch, step)
-    del pipe, cond, lat
+    del cond
+    # the VAE decode chunk (tools/profile_vae.py's subject): 8 frames of
+    # 64^2 latents to 512^2
+    lat8 = lat[:8].to(torch.bfloat16).contiguous()
+
+    def decode():
+        pipe.vae.decode_scaled(lat8)
+        torch.cuda.synchronize()
+
+    decode()
+    t0 = time.perf_counter()
+    decode()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        decode()
+    report_profile(prof, "the VAE decode chunk: 8 frames, 64^2 latents -> 512x512", wall_ms)
+    report_k2_calls(torch, decode)
+    del pipe, lat, lat8
     torch.cuda.empty_cache()
 
 
@@ -1280,6 +1344,61 @@ def run_a2v_small(torch, tmp: str):
                 f"a2v_small {what}: the card's error exceeds {SMALL_ERR_FACTOR}x the plain error")
 
 
+def run_long240(torch, ops, kernel_mods, tmp: str):
+    """audio2vid as in `run_a2v` on a LONG_SECONDS (9.6 s) clip: 3 chained
+    Stage-1 slices with motion selection over 3 candidates, 240 frames, 30
+    context windows fused each Stage-2 step (window_microbatch 5: 120 frame
+    rows a UNet call). Finite frames and keypoints, the seam check of
+    tests/test_long_video.py at frames 80 and 160, K1-K4 launched (K5 not),
+    K2 in the audio encoding; seconds, launches and peak memory per phase."""
+    import numpy as np
+
+    from mmgt_tpu_torch.config import InferenceConfig
+    from mmgt_tpu_torch.data.pose_init import portrait_keypoints
+    from mmgt_tpu_torch.pipelines.audio2vid import Audio2VideoPipeline
+
+    cfg = InferenceConfig(video_length=LONG_FRAMES, num_inference_steps=STEPS,
+                          a2p_sampling_steps=A2V_STAGE1_STEPS, use_motion_selection=True,
+                          motion_candidates=3)
+    t0 = time.perf_counter()
+    pipe = Audio2VideoPipeline.build(torch.bfloat16, device="cuda", feature_type="wavlm",
+                                     seed=SEED, config=cfg, profile_phases=True)
+    torch.cuda.synchronize()
+    log(f"long240: build {time.perf_counter() - t0:.1f} s")
+    wav = write_wav(tmp, LONG_SECONDS, SEED + 90)
+    ref = np.random.default_rng(SEED + 91).uniform(size=(SIZE, SIZE, 3)).astype(np.float32)
+    init_kp = portrait_keypoints(ref, SIZE, SIZE)
+    out, counts, calls, sec, peak = record_call(torch, ops, kernel_mods, lambda: pipe(
+        wav, ref, init_kp, generator=torch.Generator(device="cuda").manual_seed(SEED)))
+    frames, kp = out["frames"], out["keypoints"]
+    require(frames.shape == (LONG_FRAMES, SIZE, SIZE, 3), f"long240 frame shape {frames.shape}")
+    require(bool(np.isfinite(frames).all()), "long240 frames are not finite")
+    require(kp.shape == (LONG_FRAMES, 402) and bool(np.isfinite(kp).all()),
+            f"long240 keypoints: shape {kp.shape} or not finite")
+    require_launches("long240", counts, INFERENCE_KERNELS)
+    require(pipe.phase_launches["audio_clip"]["group_norm"] > 0,
+            "long240: K2 was not launched in the audio encoding (wav2vec2 conv 0)")
+    step_l1 = np.abs(np.diff(kp, axis=0)).mean(axis=1)
+    med = float(np.median(step_l1))
+    seams = {s_: float(step_l1[s_ - 1]) for s_ in (80, 160)}
+    log(f"long240: per-frame L1 step at the seams {seams}, median {med:.4f} (limit "
+        f"{SEAM_FACTOR}x the median + 1e-3)")
+    for s_, v in seams.items():
+        require(v <= SEAM_FACTOR * med + 1e-3, f"long240: the step at seam {s_} is {v}")
+    log(f"long240: {LONG_FRAMES} frames from a {LONG_SECONDS} s clip in {sec:.3f} s; seconds "
+        + json.dumps({k: round(v, 3) for k, v in pipe.timings.items()})
+        + f"; max_memory_allocated {peak:.2f} GiB; frames mean {frames.mean():.4f} std "
+        f"{frames.std():.4f}")
+    log("long240: launches " + json.dumps(counts))
+    log("long240: launches by phase " + json.dumps(pipe.phase_launches))
+    for name, n in counts.items():
+        require(sum(ph[name] for ph in pipe.phase_launches.values()) == n,
+                f"long240 {name}: the phases' launches do not add up to the run's")
+    del pipe, out, frames
+    torch.cuda.empty_cache()
+    return counts, calls
+
+
 # ----------------------------------------------- the rest of inference
 def record_call(torch, ops, kernel_mods, fn):
     """fn() with every launch counter set to 0 just before and read just
@@ -1505,47 +1624,51 @@ def run_lmks2vid_small(torch, Pose2VideoPipeline):
                                       guidance_scale=GUIDANCE, latents=lat0),), ("frames",))
 
 
-def pack_qkv(sd):
-    """The reference GestureDecoder's layout: each attention's q/k/v packed
-    into nn.MultiheadAttention's in_proj_weight / in_proj_bias."""
-    import re
+def run_fewstep(torch, ops, kernel_mods, tmp: str):
+    """The few-step quality tool's `main` in this process
+    (`mmgt_tpu_torch/tools/fewstep_quality.py`: full width, 512^2, 16
+    frames, DDIM-200 as the ground truth): every row finite; within each
+    sampler the latent error falls as the steps rise; DPM++-15 below
+    DDIM-15. K1-K4 launched (K5 not)."""
+    from mmgt_tpu_torch.tools import fewstep_quality
 
-    import torch
-
-    out = dict(sd)
-    for k in list(sd):
-        m = re.match(r"(.*)\.q_proj\.(weight|bias)$", k)
-        if m:
-            base, kind = m.groups()
-            out[f"{base}.in_proj_{kind}"] = torch.cat(
-                [out.pop(f"{base}.{p}_proj.{kind}") for p in "qkv"], 0)
-    return out
+    res, counts, calls, sec, peak = record_call(torch, ops, kernel_mods, lambda: (
+        fewstep_quality.main(["--out", os.path.join(tmp, "fewstep.json")])))
+    rows = {(r["sampler"], r["steps"]): r for r in res["rows"]}
+    for r in res["rows"]:
+        log("fewstep: " + json.dumps(r))
+        require(all(math.isfinite(v) for v in r.values() if isinstance(v, float)),
+                f"fewstep: a value of {r['sampler']}-{r['steps']} is not finite")
+    err = lambda name, n: rows[(name, n)]["rel_latent_err"]  # noqa: E731
+    require(err("ddim", 15) > err("ddim", 25), "fewstep: DDIM-25 is not below DDIM-15")
+    require(err("dpm++2m", 12) > err("dpm++2m", 15) > err("dpm++2m", 25),
+            "fewstep: DPM++'s error does not fall as the steps rise")
+    require(err("dpm++2m", 15) < err("ddim", 15), "fewstep: DPM++-15 is not below DDIM-15")
+    require_launches("fewstep", counts, INFERENCE_KERNELS)
+    log(f"fewstep: {sec:.1f} s (the ground truth {res['protocol']['ref_wall_s']:.1f} s), "
+        f"max_memory_allocated {peak:.2f} GiB; protocol " + json.dumps(res["protocol"])
+        + "; launches " + json.dumps(counts))
+    torch.cuda.empty_cache()
+    return counts, calls
 
 
 def run_weights(torch, ops, kernel_mods, tmp: str):
     """A reference-layout weights directory at full width, written in fp16
-    from seeded port modules, loaded back by `load_all_weights` onto the
+    from seeded port modules by the synth_weights tool
+    (`mmgt_tpu_torch/tools/synth_weights.py`), loaded back by `load_all_weights` onto the
     card: every tensor equal to what was written, cast to its target
     dtype (wav2vec2 and WavLM: f32 modules holding bf16 values), no model
     random-filled; then the pose2vid CLI's `run` on the loaded pipeline.
     The directory stays for the preprocess phase (its WavLM checkpoint)
     and verify_weights, which removes it."""
-    import argparse
-    import shutil
-
     import numpy as np
 
     from mmgt_tpu_torch.config import InferenceConfig
     from mmgt_tpu_torch.data.audio import AudioProcessor
-    from mmgt_tpu_torch.models.clip_vision import CLIPVisionModel
     from mmgt_tpu_torch.models.wav2vec2 import Wav2Vec2Model
-    from mmgt_tpu_torch.models.wavlm import WavLMModel
-    from mmgt_tpu_torch.pipelines.pose2vid import (
-        Pose2VideoPipeline,
-        init_random_params,
-        materialize,
-    )
+    from mmgt_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline, materialize
     from mmgt_tpu_torch.scripts import pose2vid as cli
+    from mmgt_tpu_torch.tools.synth_weights import synth_weights
     from mmgt_tpu_torch.training.stage1 import SMGA
     from mmgt_tpu_torch.utils import convert as PC
     from mmgt_tpu_torch.utils.weights import load_all_weights
@@ -1553,67 +1676,12 @@ def run_weights(torch, ops, kernel_mods, tmp: str):
     dev, bf16, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
     root = os.path.join(tmp, "weights")
     t0 = time.perf_counter()
-    src = Pose2VideoPipeline.build(bf16, device="cuda", seed=SEED + 40)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
-    with torch.device("meta"):
-        enc = dict(clip=CLIPVisionModel(), wav2vec2=Wav2Vec2Model(), wavlm=WavLMModel())
-        smga = SMGA(feature_type="wavlm")
-    enc = {n: init_random_params(materialize({n: m}, dev, bf16 if n == "clip" else f32)[n], gen)
-           for n, m in enc.items()}
-    smga.model.to_empty(device=dev)
-    init_random_params(smga.model, gen)
-    half = lambda m: {k: v.detach().to("cpu", torch.float16) for k, v in m.state_dict().items()}
-    written = {n: half(m) for n, m in dict(src.models(), smga=smga.model, **enc).items()}
-    del src, enc, smga
+    info = synth_weights(root, "cuda", SEED + 40)
+    expected = info["expected"]  # the values each model must hold, before the cast to its dtype
     torch.cuda.empty_cache()
-    # the values each model must hold, before the cast to its dtype
-    expected = {n: dict(sd) for n, sd in written.items()}
-
-    def weight_norm(sd, name, key):
-        """HF's and WavLM's weight_norm(dim=2) layout for a positional conv."""
-        base = key[:-len(".weight")]
-        w = sd.pop(key)
-        g = torch.sqrt((w.float() ** 2).sum((0, 1), keepdim=True)).to(torch.float16)
-        sd[base + ".weight_g"], sd[base + ".weight_v"] = g, w
-        expected[name][key] = PC.fold_weight_norm({base + ".weight_g": g,
-                                                   base + ".weight_v": w})[key]
-        return sd
-
-    prefixes = dict(reference_unet="reference_unet", denoising_unet="denoising_unet",
-                    pose_guider="pose_guider", audio_proj="audioproj")
-    ema = {f"module.{k}": v for k, v in pack_qkv(written["smga"]).items()}
-    files = {
-        "net-1000.pth": {f"{pre}.{k}": v for n, pre in prefixes.items()
-                         for k, v in written[n].items()},
-        "sd-vae-ft-mse/diffusion_pytorch_model.bin": written["vae"],
-        "image_encoder/pytorch_model.bin": written["clip"],
-        "wav2vec2-base-960h/pytorch_model.bin": weight_norm(
-            dict(written["wav2vec2"]), "wav2vec2", "encoder.pos_conv_embed.conv.weight"),
-        "wavlm/WavLM-Large.pt": {"model": weight_norm(dict(written["wavlm"]), "wavlm",
-                                                      "encoder.pos_conv.0.weight"),
-                                 "cfg": argparse.Namespace(encoder_layers=24)},
-        "smga.pt": {"ema_state_dict": ema,
-                    "model_state_dict": {k: torch.zeros_like(v) for k, v in ema.items()},
-                    "normalizer": None},
-    }
-
-    def tensor_bytes(obj):
-        if isinstance(obj, dict):
-            return sum(tensor_bytes(v) for v in obj.values())
-        return obj.numel() * obj.element_size() if isinstance(obj, torch.Tensor) else 0
-
-    need = sum(tensor_bytes(v) for v in files.values())
-    free = shutil.disk_usage(tmp).free
-    require(free > need + 2**30, f"weights: {need} bytes to write, {free} free in {tmp}")
-    log(f"weights: source models {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    for rel, obj in files.items():
-        path = os.path.join(root, rel)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        torch.save(obj, path)
-    write_s = time.perf_counter() - t0
-    on_disk = sum(os.path.getsize(os.path.join(root, rel)) for rel in files)
-    del files, ema
+    need, write_s, on_disk = info["tensor_bytes"], info["write_s"], info["bytes"]
+    log(f"weights: source models and files {time.perf_counter() - t0:.1f} s (the synth_weights "
+        f"tool, {len(info['files'])} files)")
 
     t0 = time.perf_counter()
     pipe = Pose2VideoPipeline.build(bf16, device="cuda", seed=SEED + 42)
@@ -2056,6 +2124,40 @@ def run_preprocess(torch, ops, tmp: str):
     import shutil
     shutil.rmtree(root)
     return counts, {}
+
+
+def run_release(torch, tmp: str) -> dict:
+    """`python -m mmgt_tpu_torch.tools.release_check` in a process of its
+    own on the weights phase's directory, at its defaults (512^2, 80
+    frames, DPM++ 15 steps): exit 0, every stage ok, a non-empty mp4, K1-K4
+    launched in its generate stage (K5 not). Returns those launches."""
+    out = os.path.join(tmp, "release_check")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mmgt_tpu_torch.tools.release_check",
+                           os.path.join(tmp, "weights"), "--out", out],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=600)
+    sec = time.perf_counter() - t0
+    require(proc.returncode == 0, f"release: exit {proc.returncode}: {proc.stdout[-1500:]} "
+            f"{proc.stderr[-2500:]}")
+    with open(os.path.join(out, "release_check.json")) as f:
+        rep = json.load(f)
+    stages = rep["stages"]
+    require(rep["ok"] and list(stages) == ["verify_weights", "generate"]
+            and all(v["ok"] for v in stages.values()), "release: " + json.dumps(stages)[:2000])
+    gen = stages["generate"]
+    require(gen["mp4_bytes"] > 0 and os.path.getsize(gen["mp4"]) == gen["mp4_bytes"],
+            "release: no mp4")
+    require_launches("release", gen["launches"], INFERENCE_KERNELS)
+    log(f"release: {sec:.1f} s in its own process; stage seconds "
+        + json.dumps({k: round(v["s"], 3) for k, v in stages.items()})
+        + f"; generate {gen['frames']} in {gen['wall_s']:.3f} s, seconds "
+        + json.dumps({k: round(v, 3) for k, v in gen["timings"].items()})
+        + f", max_memory_allocated {gen['peak_gib']:.2f} GiB, mp4 {gen['mp4_bytes']} bytes; "
+        "verify " + json.dumps(stages["verify_weights"]["entries"])
+        + "; launches " + json.dumps(gen["launches"]))
+    return gen["launches"]
 
 
 def run_verify_weights(torch, ops, kernel_mods, tmp: str):
@@ -2624,6 +2726,92 @@ def run_train_a2p(torch, ops, tmp: str):
     return counts
 
 
+def run_soak(torch, ops, kernel_mods):
+    """JAX's overfit tests (tests/test_training_soak.py:54, :165) at full
+    width. Stage 2: `Stage2Trainer.build(bf16, remat=True)`, SOAK_SIZE^2,
+    12 frames, batch 1, SOAK_STEPS steps on one fixed jittered batch with 4
+    fixed (t, noise) draws in turn, lr SOAK_LR, CFG dropout and noise
+    offset off: every loss finite, each draw's loss ends lower than it
+    started, K5 launched in every step; the mean drop is printed against
+    JAX's tiny-width SOAK_DROP_PREDICTED. Then SMGA at the reference's
+    widths, f32, batch 1, SMGA_SOAK_STEPS steps, lr SMGA_SOAK_LR, no
+    condition dropout, 4 fixed draws: the mean loss falls by more than
+    SMGA_SOAK_DROP x, no kernel launched. Returns (launches, calls) of the
+    Stage-2 steps."""
+    from mmgt_tpu_torch.training.stage1 import SMGA
+    from mmgt_tpu_torch.training.stage2 import Stage2Trainer
+
+    t0 = time.perf_counter()
+    trainer = Stage2Trainer.build(torch.bfloat16, device="cuda", seed=SEED, remat=True,
+                                  learning_rate=SOAK_LR, uncond_img_ratio=0.0,
+                                  uncond_audio_ratio=0.0, noise_offset=0.0)
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    log(f"soak: build + init_state {time.perf_counter() - t0:.1f} s")
+    batch = trainer.make_example_batch(1, TRAIN_FRAMES, SOAK_SIZE, SOAK_SIZE)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 100)
+    jitter = lambda x: x + 0.3 * torch.randn(x.shape, generator=g, device="cuda")  # noqa: E731
+    for k in ("pixel_values", "ref_image", "audio_embeds"):
+        batch[k] = jitter(batch[k])
+    batch["pose_video"] = jitter(batch["pose_video"]).abs()
+    h8 = SOAK_SIZE // 8
+    draws = [trainer.draws(1, TRAIN_FRAMES, h8, h8, torch.Generator(device="cuda").manual_seed(
+        SEED + 101 + i)) for i in range(4)]
+    losses, k5, secs = [], [], []
+
+    def steps():
+        for i in range(SOAK_STEPS):
+            before = ops.launch_counts()["flash_attention_bwd"]
+            t1 = time.perf_counter()
+            losses.append(float(trainer.train_step(state, batch, draws[i % 4])["loss"]))
+            secs.append(time.perf_counter() - t1)
+            k5.append(ops.launch_counts()["flash_attention_bwd"] - before)
+
+    _, counts, calls, sec, peak = record_call(torch, ops, kernel_mods, steps)
+    require(all(math.isfinite(x) for x in losses), f"soak: losses {losses}")
+    require(all(n > 0 for n in k5), f"soak: K5 launches per step {k5}")
+    for name in INFERENCE_KERNELS:
+        require(counts[name] > 0, f"soak: {name} was not launched")
+    cycles = [losses[j::4] for j in range(4)]
+    first, last = sum(losses[:4]) / 4, sum(losses[-4:]) / 4
+    log(f"soak: Stage 2, {SOAK_STEPS} steps at {SOAK_SIZE}^2 in {sec:.1f} s ({sum(secs[1:]) / (len(secs) - 1):.3f} s "
+        f"a step after the first), max_memory_allocated {peak:.2f} GiB, K5 {k5[0]} a step; "
+        f"each draw's first and last loss {[(c[0], c[-1]) for c in cycles]}; mean of the first "
+        f"4 {first:.6f}, of the last 4 {last:.6f}: a drop of {1 - last / first:.3f} (JAX's "
+        f"tiny-width criterion, a prediction here: {SOAK_DROP_PREDICTED}); launches "
+        + json.dumps(counts))
+    for j, c in enumerate(cycles):
+        require(c[-1] < c[0], f"soak: draw {j}'s loss did not fall: {c}")
+    del trainer, state, batch, draws
+    torch.cuda.empty_cache()
+
+    smga = SMGA.build("cuda", SEED, feature_type="baseline", learning_rate=SMGA_SOAK_LR,
+                      cond_drop_prob=0.0)
+    sstate = smga.init_state()
+    gs = torch.Generator(device="cuda").manual_seed(SEED + 110)
+    sbatch = {"keypoints": torch.cumsum(0.02 * torch.randn(1, 80, 402, generator=gs,
+                                                           device="cuda"), 1),
+              "cond_frame": torch.randn(1, 402, generator=gs, device="cuda"),
+              "audio_features": torch.randn(1, 80, 35, generator=gs, device="cuda")}
+    sdraws = [smga.draws(1, torch.Generator(device="cuda").manual_seed(SEED + 111 + i))
+              for i in range(4)]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    slosses = [float(smga.train_step(sstate, sbatch, sdraws[i % 4])["loss"])
+               for i in range(SMGA_SOAK_STEPS)]
+    ssec = time.perf_counter() - t0
+    require(not any(ops.launch_counts().values()), "soak: SMGA launched a kernel")
+    sfirst, slast = sum(slosses[:4]) / 4, sum(slosses[-4:]) / 4
+    log(f"soak: SMGA, {SMGA_SOAK_STEPS} steps in {ssec:.1f} s; losses every 20 steps "
+        f"{slosses[::20]}; mean of the first 4 {sfirst:.6f}, of the last 4 {slast:.6f}: "
+        f"{sfirst / slast:.2f}x (limit > {SMGA_SOAK_DROP}x)")
+    require(all(math.isfinite(x) for x in slosses), "soak: SMGA losses not finite")
+    require(slast * SMGA_SOAK_DROP < sfirst, "soak: the SMGA loss did not fall 4x")
+    del smga, sstate
+    torch.cuda.empty_cache()
+    return counts, calls
+
+
 def run_profile_train(torch, Stage2Trainer):
     """One full-width train step under torch.profiler (after a warm-up
     step): device time by kernel family and the idle share."""
@@ -3146,15 +3334,18 @@ def main(argv) -> int:
             run_a2v_small(torch, tmp)
             log(f"a2v + a2v_small: {time.perf_counter() - t0:.1f} s")
             paths = {}
-            for tag, run in (("dpm", lambda: run_dpm(torch, ops, kernel_mods)),
+            for tag, run in (("long240", lambda: run_long240(torch, ops, kernel_mods, tmp)),
+                             ("dpm", lambda: run_dpm(torch, ops, kernel_mods)),
                              ("dpm_small", lambda: run_dpm_small(torch, Pose2VideoPipeline)),
                              ("pose2img", lambda: run_pose2img(torch, ops, kernel_mods)),
                              ("pose2img_small", lambda: run_pose2img_small(torch)),
                              ("lmks2vid", lambda: run_lmks2vid(torch, ops, kernel_mods)),
                              ("lmks2vid_small",
                               lambda: run_lmks2vid_small(torch, Pose2VideoPipeline)),
+                             ("fewstep", lambda: run_fewstep(torch, ops, kernel_mods, tmp)),
                              ("weights", lambda: run_weights(torch, ops, kernel_mods, tmp)),
                              ("preprocess", lambda: run_preprocess(torch, ops, tmp)),
+                             ("release", lambda: (run_release(torch, tmp), {})),
                              ("verify_weights",
                               lambda: run_verify_weights(torch, ops, kernel_mods, tmp))):
                 t0 = time.perf_counter()
@@ -3181,6 +3372,11 @@ def main(argv) -> int:
             t0 = time.perf_counter()
             paths["train_a2p"] = dict(launches=run_train_a2p(torch, ops, tmp), calls={})
             log(f"train_a2p: {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            soak_counts, soak_calls = run_soak(torch, ops, kernel_mods)
+            paths["soak"] = dict(launches=soak_counts, calls=check_a2v_calls(
+                torch, soak_calls, A, N, L, M, "soak", checked))
+            log(f"soak: {time.perf_counter() - t0:.1f} s")
             for tag, (counts_, calls_) in run_mesh(torch, ops, tmp).items():
                 paths[tag] = dict(launches=counts_, calls=check_a2v_calls(
                     torch, calls_, A, N, L, M, tag, checked))

@@ -77,6 +77,16 @@ def _largest_divisor_at_most(n: int, cap: int) -> int:
     return 1
 
 
+def window_average(pred: torch.Tensor, flat: torch.Tensor, f: int) -> torch.Tensor:
+    """The overlapping windows' predictions fused into one per frame: row i
+    of `pred` (n, ...) belongs to frame flat[i]; each of the f frames gets
+    the mean of its rows (the JAX package's segment sum over counts)."""
+    count = torch.zeros((f,), dtype=torch.float32, device=pred.device).index_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.float32))
+    total = torch.zeros((f, *pred.shape[1:]), dtype=torch.float32, device=pred.device)
+    return total.index_add_(0, flat, pred) / count.reshape(-1, *([1] * (pred.ndim - 1)))
+
+
 @torch.no_grad()
 def init_random_params(model: nn.Module, gen: torch.Generator, std: float = 0.02) -> nn.Module:
     """Seeded random weights for an inference model, in place: norm scales
@@ -344,13 +354,8 @@ class Pose2VideoPipeline(ModelBundle):
             pred = torch.stack([denoise_group(lat_d, step_t, idx[g * mb:(g + 1) * mb])
                                 for g in range(groups)])
             pred = pred.reshape(groups, 2, mb, ctx_len, h8, w8, 4)
-            uncond = pred[:, 0].reshape(w * ctx_len, h8, w8, 4)
-            cond_p = pred[:, 1].reshape(w * ctx_len, h8, w8, 4)
-            zeros = torch.zeros((f, h8, w8, 4), dtype=torch.float32, device=latents.device)
-            count = torch.zeros((f,), dtype=torch.float32, device=latents.device).index_add_(
-                0, flat, torch.ones_like(flat, dtype=torch.float32))[:, None, None, None]
-            u = zeros.clone().index_add_(0, flat, uncond) / count
-            c = zeros.index_add_(0, flat, cond_p) / count
+            u = window_average(pred[:, 0].reshape(w * ctx_len, h8, w8, 4), flat, f)
+            c = window_average(pred[:, 1].reshape(w * ctx_len, h8, w8, 4), flat, f)
             noise_pred = u + guidance_scale * (c - u)
             if isinstance(tables, SolverTables):
                 latents, aux = solver_step(tables, noise_pred, s, latents, aux,

@@ -74,7 +74,6 @@ def build(cfg, device=None, seed: int = 42):
     from mmgt_tpu_torch.pipelines.audio2vid import Audio2VideoPipeline
     from mmgt_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline
     from mmgt_tpu_torch.training.stage1 import SMGA
-    from mmgt_tpu_torch.utils.weights import load_all_weights
 
     if not cfg.weights_dir:
         print("[warn] no weights_dir: random-initialized models", file=sys.stderr)
@@ -87,6 +86,16 @@ def build(cfg, device=None, seed: int = 42):
     with torch.device("meta"):
         smga = SMGA(feature_type=cfg.a2p_feature_type, guidance_weight=cfg.a2p_guidance_weight)
     smga.model.to_empty(device=pose2vid.device)
+    return from_weights(cfg, pose2vid, smga)
+
+
+def from_weights(cfg, pose2vid, smga):
+    """The audio2vid pipeline around `pose2vid` and `smga` once
+    `load_all_weights` has loaded `cfg.weights_dir` into them (on
+    `pose2vid`'s device), with the encoders whose files it found."""
+    from mmgt_tpu_torch.pipelines.audio2vid import Audio2VideoPipeline
+    from mmgt_tpu_torch.utils.weights import load_all_weights
+
     w = load_all_weights(cfg.weights_dir, pose2vid, smga, pose2vid.device)
     return Audio2VideoPipeline(smga=w["smga"], pose2vid=pose2vid,
                                clip_model=w.get("clip_model"),

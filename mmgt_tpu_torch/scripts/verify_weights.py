@@ -15,7 +15,11 @@ With --forward it loads the modules for real on --device (the card unless
 runs each net once on a small input.
 
     python -m mmgt_tpu_torch.scripts.verify_weights /path/to/pretrained_weights \\
-        [--forward] [--json report.json] [--device cuda]
+        [--forward] [--json report.json] [--device cuda] [--tiny]
+
+`--tiny` holds the Stage-2 models and the SMGA decoder to the tiny widths
+of `tiny_models` instead (the drills of `mmgt_tpu_torch.tools.synth_weights
+--tiny` and `release_check --tiny`); every other entry keeps its full size.
 
 Exit code 0 = every artifact that was found converted cleanly (and, with
 --forward, ran to finite outputs).
@@ -45,6 +49,8 @@ def parse_args(argv=None):
                     help="also load each net on --device and run it once (small inputs)")
     ap.add_argument("--json", default=None, help="write the report as JSON")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--tiny", action="store_true",
+                    help="tiny Stage-2 and SMGA widths (drills on synthetic weights)")
     return ap.parse_args(argv)
 
 
@@ -53,9 +59,31 @@ def parse_args(argv=None):
 _BF16 = ("vae", "reference_unet", "denoising_unet", "pose_guider", "audio_proj", "clip_vision")
 
 
-def _models() -> Dict[str, Callable[[], nn.Module]]:
-    """Each entry's full-size module, built wherever the caller's device
-    context puts it."""
+def tiny_models() -> Dict[str, Callable[..., nn.Module]]:
+    """The tiny widths of the drills: the Stage-2 models of the JAX
+    training CLIs' --tiny (UNets (16, 32, 32, 32) with 4 heads) and a
+    one-layer SMGA decoder, `smga(cond_dim)`."""
+    from mmgt_tpu_torch.models.audio_proj import AudioProjModel
+    from mmgt_tpu_torch.models.pose_guider import PoseGuider
+    from mmgt_tpu_torch.models.smga import GestureDecoder
+    from mmgt_tpu_torch.models.unet3d import DenoisingUNet3D
+    from mmgt_tpu_torch.models.unet_ref import ReferenceUNet2D
+    from mmgt_tpu_torch.models.vae import AutoencoderKL
+
+    unet = dict(block_out_channels=(16, 32, 32, 32), heads=4)
+    return {"vae": lambda: AutoencoderKL((16, 16, 32, 32)),
+            "reference_unet": lambda: ReferenceUNet2D(**unet),
+            "denoising_unet": lambda: DenoisingUNet3D(**unet),
+            "pose_guider": lambda: PoseGuider(16, (4, 8, 8, 16)),
+            "audio_proj": lambda: AudioProjModel(intermediate_dim=32),
+            "smga": lambda cond_dim: GestureDecoder(latent_dim=64, ff_size=64, num_layers=1,
+                                                    num_heads=4, cond_feature_dim=cond_dim)}
+
+
+def _models(tiny: bool = False) -> Dict[str, Callable[[], nn.Module]]:
+    """Each entry's full-size module (the Stage-2 ones at `tiny_models`'
+    widths when `tiny`), built wherever the caller's device context puts
+    it."""
     from mmgt_tpu_torch.models.audio_proj import AudioProjModel
     from mmgt_tpu_torch.models.clip_vision import CLIPVisionModel
     from mmgt_tpu_torch.models.dwpose import RTMPose, YOLOXL
@@ -66,11 +94,14 @@ def _models() -> Dict[str, Callable[[], nn.Module]]:
     from mmgt_tpu_torch.models.wav2vec2 import Wav2Vec2Model
     from mmgt_tpu_torch.models.wavlm import WavLMModel
 
-    return {"vae": AutoencoderKL, "reference_unet": ReferenceUNet2D,
-            "denoising_unet": DenoisingUNet3D, "pose_guider": PoseGuider,
-            "audio_proj": AudioProjModel, "clip_vision": CLIPVisionModel,
-            "wav2vec2": Wav2Vec2Model, "wavlm": WavLMModel, "dwpose_yolox": YOLOXL,
-            "dwpose_rtmpose": RTMPose}
+    models = {"vae": AutoencoderKL, "reference_unet": ReferenceUNet2D,
+              "denoising_unet": DenoisingUNet3D, "pose_guider": PoseGuider,
+              "audio_proj": AudioProjModel, "clip_vision": CLIPVisionModel,
+              "wav2vec2": Wav2Vec2Model, "wavlm": WavLMModel, "dwpose_yolox": YOLOXL,
+              "dwpose_rtmpose": RTMPose}
+    if tiny:
+        models.update({k: f for k, f in tiny_models().items() if k in models})
+    return models
 
 
 class Verifier:
@@ -78,15 +109,15 @@ class Verifier:
     where the modules live: meta (shapes only) or, for --forward, a real
     device."""
 
-    def __init__(self, device: torch.device):
-        self.device = device
+    def __init__(self, device: torch.device, tiny: bool = False):
+        self.device, self.tiny = device, tiny
         self.report: Dict[str, dict] = {}
         self.failed: List[str] = []
         self.loaded: Dict[str, nn.Module] = {}
 
     def build(self, name: str) -> nn.Module:
         with torch.device("meta"):
-            model = _models()[name]()
+            model = _models(self.tiny)[name]()
         if self.device.type != "meta":
             model.to_empty(device=self.device)
             model.to(torch.bfloat16 if name in _BF16 else torch.float32)
@@ -128,16 +159,17 @@ class Verifier:
         return model, cv.load_checkpoint(model, sds, missing_ok), {}
 
 
-def verify(weights_dir: str, device: Optional[torch.device] = None):
+def verify(weights_dir: str, device: Optional[torch.device] = None, tiny: bool = False):
     """The report of every file found under `weights_dir`, loaded into
-    modules on `device` (meta when None), and the names that failed.
+    modules on `device` (meta when None; the Stage-2 models and SMGA at
+    `tiny_models`' widths when `tiny`), and the names that failed.
     Returns (report, failed, loaded modules)."""
     from mmgt_tpu_torch.training.stage1 import SMGA
     from mmgt_tpu_torch.utils.onnx_exec import unsupported_ops
     from mmgt_tpu_torch.utils.onnx_reader import parse_onnx_model
 
     root = Path(weights_dir)
-    v = Verifier(device or torch.device("meta"))
+    v = Verifier(device or torch.device("meta"), tiny)
 
     net_ckpt = _find(root, "net-*.pth", "modules/net-*.pth", "audio_ckpt/modules/net-*.pth")
     net_parts: Dict[str, dict] = {}
@@ -185,6 +217,8 @@ def verify(weights_dir: str, device: Optional[torch.device] = None):
         for ft in ("wavlm", "baseline"):
             with torch.device("meta"):
                 smga = SMGA(feature_type=ft)
+                if tiny:
+                    smga.model = tiny_models()["smga"](smga.cond_dim)
             model = smga.model
             if v.device.type != "meta":
                 model.to_empty(device=v.device)
@@ -279,7 +313,8 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     disable_tf32()
-    report, failed, loaded = verify(args.weights_dir, device if args.forward else None)
+    report, failed, loaded = verify(args.weights_dir, device if args.forward else None,
+                                    args.tiny)
     if args.forward and not failed:
         print("forwarding the loaded nets...")
         sep = report.get("separator_mdx", {})

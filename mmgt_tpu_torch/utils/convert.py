@@ -497,7 +497,9 @@ def fold_weight_norm(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     `X.weight_v` (old API) or `X.parametrizations.weight.original0/1`
     (new API) -> `X.weight` = g * v / ||v||, the norm over every axis where
     g has size 1, in float64 numpy as the JAX package computes it, rounded
-    to v's dtype."""
+    to v's dtype. A 0-dim g (`weight_norm(dim=None)`), or one with no
+    size-1 axis, takes the norm over the whole of v, as torch does; the
+    JAX package's copy normalises over every axis but the last there."""
     out = dict(sd)
     pairs = []
     for k in sd:
@@ -512,7 +514,7 @@ def fold_weight_norm(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     for base, g_key, v_key in pairs:
         g = _numpy(sd[g_key]).astype(np.float32)
         v = _numpy(sd[v_key]).astype(np.float32)
-        axes = tuple(i for i, s in enumerate(g.shape) if s == 1) or tuple(range(v.ndim - 1))
+        axes = tuple(i for i, s in enumerate(g.shape) if s == 1) or tuple(range(v.ndim))
         norm = np.sqrt((v.astype(np.float64) ** 2).sum(axis=axes, keepdims=True))
         w = g * (v / norm)
         dtype = sd[v_key].dtype

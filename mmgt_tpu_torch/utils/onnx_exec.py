@@ -23,7 +23,9 @@ leaves the padding out of its counts; Softmax normalises along `axis`
 (default -1) whatever the opset; LayerNormalization normalises along the
 one `axis`. Float64 host values become float32 on the device, as JAX's
 32-bit default makes them; `Cast` to double gives float32 on the device.
-An op the table does not hold raises NotImplementedError.
+One op goes beyond the JAX executor: ReduceL2, which torch's exporter
+writes for a vector norm (mmpose's ScaleNorm computes one). An op the
+table does not hold raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -545,6 +547,23 @@ def _reduce(r, ins, attrs, node):
     fn = {"ReduceMean": torch.mean, "ReduceSum": torch.sum,
           "ReduceMax": torch.amax, "ReduceMin": torch.amin}[node["op_type"]]
     return [fn(x, dim=dims, keepdim=keep)]
+
+
+@_op("ReduceL2")
+def _reduce_l2(r, ins, attrs, node):
+    """sqrt(sum(x^2)) over `axes` (an attribute before opset 18, an input
+    from 18 on); no axes reduce every axis, or none with
+    `noop_with_empty_axes`. torch exports `torch.norm` and
+    `torch.linalg.norm` so; the JAX executor has no ReduceL2."""
+    x = r._t(ins[0])
+    axes = attrs.get("axes")
+    if axes is None and len(ins) > 1 and ins[1] is not None:
+        axes = _np(ins[1]).tolist()
+    if not axes:
+        if attrs.get("noop_with_empty_axes", 0):
+            return [x]
+        axes = range(x.ndim)
+    return [torch.linalg.vector_norm(x, dim=tuple(axes), keepdim=bool(attrs.get("keepdims", 1)))]
 
 
 SUPPORTED_OPS = frozenset(_OPS)

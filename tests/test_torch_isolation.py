@@ -48,7 +48,9 @@ new = {"mmgt_tpu_torch.config", "mmgt_tpu_torch.data.dsp", "mmgt_tpu_torch.data.
        "mmgt_tpu_torch.models.motion_autoencoder", "mmgt_tpu_torch.scripts.prepare_stage1",
        "mmgt_tpu_torch.scripts.prepare_stage2", "mmgt_tpu_torch.scripts.verify_weights",
        "mmgt_tpu_torch.parallel", "mmgt_tpu_torch.parallel.mesh",
-       "mmgt_tpu_torch.parallel.collectives", "mmgt_tpu_torch.parallel.launch"}
+       "mmgt_tpu_torch.parallel.collectives", "mmgt_tpu_torch.parallel.launch",
+       "mmgt_tpu_torch.tools.fewstep_quality", "mmgt_tpu_torch.tools.synth_weights",
+       "mmgt_tpu_torch.tools.release_check"}
 assert new <= set(names), sorted(new - set(names))
 """
 
@@ -155,5 +157,18 @@ def test_preprocessing_entry_points_without_cuda_raise(monkeypatch, tmp_path, en
             "prepare_stage1": lambda: prepare_stage1.build(None),
             "prepare_stage2": lambda: prepare_stage2.run(str(tmp_path), str(tmp_path / "out")),
             "verify_weights": lambda: verify_weights.main([str(tmp_path)])}[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+
+
+@pytest.mark.parametrize("entry", ["fewstep_quality", "synth_weights", "release_check"])
+def test_tool_entry_points_without_cuda_raise(monkeypatch, tmp_path, entry):
+    from mmgt_tpu_torch.tools import fewstep_quality, release_check, synth_weights
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = {"fewstep_quality": lambda: fewstep_quality.main(["--size", "64", "--frames", "4"]),
+            "synth_weights": lambda: synth_weights.main([str(tmp_path / "w"), "--tiny"]),
+            "release_check": lambda: release_check.main(
+                ["--synthetic", "--tiny", "--out", str(tmp_path / "rc")])}[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()

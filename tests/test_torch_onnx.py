@@ -329,11 +329,25 @@ def _family(name, rng):
              _node_a("Pad", ["x", "pads"], ["pe"], {"mode": "edge"}),
              _node_a("Pad", ["x"], ["pattr"], {"pads": [0, 1, 0, 0, 0, 0, 0, 1], "value": -1.0})]
         return _g(n, ["x"], ["pc", "pz", "pr", "pe", "pattr"], t), [x4]
+    if name == "reduce_l2":
+        t = [_tensor("axes", np.asarray([1, 3], np.int64)),
+             _tensor("none", np.zeros((0,), np.int64))]
+        n = [_node_a("ReduceL2", ["x"], ["attr_keep"], {"axes": [1, 3], "keepdims": 1}),
+             _node_a("ReduceL2", ["x"], ["attr_drop"], {"axes": [-1], "keepdims": 0}),
+             _node_a("ReduceL2", ["x", "axes"], ["input_keep"]),
+             _node_a("ReduceL2", ["x", "axes"], ["input_drop"], {"keepdims": 0}),
+             _node_a("ReduceL2", ["x"], ["all_keep"]),
+             _node_a("ReduceL2", ["x", "none"], ["all_drop"], {"keepdims": 0}),
+             _node_a("ReduceL2", ["x", "none"], ["noop"], {"noop_with_empty_axes": 1})]
+        return _g(n, ["x"], ["attr_keep", "attr_drop", "input_keep", "input_drop", "all_keep",
+                             "all_drop", "noop"], t), [x4]
     raise KeyError(name)
 
 
 FAMILIES = ["convnet", "conv_variants", "conv_transpose", "pools", "resize", "slices",
             "softmax_cast_where", "unary", "binary", "shape_ops", "constants", "reduce_norm", "pad"]
+# families of the port's ops that the JAX executor lacks, held against torch
+PORT_FAMILIES = ["reduce_l2"]
 
 
 def _hold(got: dict, want: dict):
@@ -371,15 +385,41 @@ def _jax_ops() -> set:
 
 
 def test_runner_covers_every_op_of_the_jax_runner():
+    """Every op of the JAX runner, and one more: ReduceL2, the port's one
+    documented departure (torch exports vector norms as ReduceL2)."""
     jax_ops = _jax_ops()
     assert len(jax_ops) >= 60
     assert jax_ops <= texec.SUPPORTED_OPS, sorted(jax_ops - texec.SUPPORTED_OPS)
-    assert texec.SUPPORTED_OPS <= jax_ops, sorted(texec.SUPPORTED_OPS - jax_ops)
+    assert texec.SUPPORTED_OPS - jax_ops == {"ReduceL2"}, sorted(texec.SUPPORTED_OPS - jax_ops)
     used = set()
-    for family in FAMILIES:
+    for family in FAMILIES + PORT_FAMILIES:
         blob, _ = _family(family, np.random.default_rng(0))
         used |= {n["op_type"] for n in treader.parse_onnx_graph(blob)[1]}
     assert used == texec.SUPPORTED_OPS, sorted(texec.SUPPORTED_OPS - used)
+
+
+_L2_WANT = {"attr_keep": lambda x: torch.linalg.norm(x, dim=(1, 3), keepdim=True),
+            "attr_drop": lambda x: torch.linalg.norm(x, dim=-1),
+            "input_keep": lambda x: torch.linalg.norm(x, dim=(1, 3), keepdim=True),
+            "input_drop": lambda x: torch.linalg.norm(x, dim=(1, 3)),
+            "all_keep": lambda x: torch.linalg.norm(x.reshape(-1)).reshape(1, 1, 1, 1),
+            "all_drop": lambda x: torch.linalg.norm(x.reshape(-1)),
+            "noop": lambda x: x}
+
+
+@pytest.mark.parametrize("out", list(_L2_WANT))
+def test_reduce_l2_matches_torch_linalg_norm(out):
+    """ReduceL2 with axes as an attribute (opset < 18) and as an input
+    (opset 18), with and without keepdims, no axes, and
+    noop_with_empty_axes, against `torch.linalg.norm` (1e-6 of the
+    largest output)."""
+    blob, (x,) = _family("reduce_l2", np.random.default_rng(14))
+    got = texec.OnnxRunner.from_bytes(blob, device="cpu")(x)
+    assert list(got) == list(_L2_WANT)
+    g, w = got[out], _L2_WANT[out](torch.from_numpy(x))
+    assert g.shape == w.shape, (g.shape, w.shape)
+    err = (g - w).abs().max().item()
+    assert err <= 1e-6 * w.abs().max().item(), err
 
 
 def test_unknown_op_raises():

@@ -74,6 +74,37 @@ def test_fold_weight_norm_matches_jax(api):
     _same(got, JC.fold_weight_norm(_np(sd)))
 
 
+@pytest.mark.parametrize("dim", [0, 2, None])
+@pytest.mark.parametrize("api", ["old", "new"])
+def test_fold_weight_norm_matches_torch(api, dim):
+    """torch's own weight norm is the oracle here (mmgt_tpu's copy
+    normalises over every axis but the last when g is 0-dim, as
+    `weight_norm(dim=None)` makes it): the folded weight equals the
+    module's computed weight within 1e-6 of its largest |w|, f32."""
+    import warnings
+
+    torch.manual_seed(3)
+    conv = torch.nn.Conv1d(4, 6, 3)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        if api == "old":
+            torch.nn.utils.weight_norm(conv, dim=dim)
+        else:
+            torch.nn.utils.parametrizations.weight_norm(conv, dim=dim)
+    with torch.no_grad():  # g away from ||v||, so the fold's g matters
+        g = (conv.weight_g if api == "old" else conv.parametrizations.weight.original0)
+        g.mul_(1.5)
+        conv(torch.zeros(1, 4, 5))  # the old API recomputes the weight in its forward hook
+        want = conv.weight.detach().clone()
+    sd = {f"conv.{k}": v.detach() for k, v in conv.state_dict().items()}
+    assert sd[[k for k in sd if k.endswith(("weight_g", "original0"))][0]].ndim == (
+        0 if dim is None else 3)
+    got = PC.fold_weight_norm(sd)
+    assert set(got) == {"conv.weight", "conv.bias"} and got["conv.weight"].dtype == torch.float32
+    err = (got["conv.weight"] - want).abs().max().item()
+    assert err <= 1e-6 * want.abs().max().item(), err
+
+
 def test_split_packed_qkv_and_net_split_match_jax():
     rng = np.random.default_rng(1)
     sd = {"a.self_attn.in_proj_weight": _fp16((12, 4), rng),
