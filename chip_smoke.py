@@ -197,7 +197,26 @@ Phases, in order; any failure exits non-zero:
      NCCL between cards); every launch signature replayed as in 6. Then
      the video CLI's main at world 1 as torchrun starts it: an NCCL
      process group, one full-width step and its checkpoint. A failing
-     rank fails the phase.
+     rank fails the phase;
+ 19. mfu: the FLOP audit (`mmgt_tpu_torch/tools/mfu_audit.py`): one
+     flagship denoise group through the full-width denoiser (MFU_MB = 5
+     windows x CFG = 10 rows of MFU_FRAMES = 12 frames, 512^2, bf16),
+     K1-K4 launched (counts set to 0 just before, read just after), its
+     output finite, timed over MFU_ITERS calls, and one window's call (2
+     rows) timed for 20; then the tool's counts over fake tensors (the
+     group, main's 16-frame step, the 80-frame step, a VAE frame, an SMGA
+     step): counted, executed by K1-K4's tiles, the JAX bench's closed
+     form, and each one's utilization of 989 TFLOP/s at the group's time,
+     main's step time and the a2v call's step time;
+ 20. budget: the n-card budget (`mmgt_tpu_torch/tools/budget_8chip.py`):
+     its single-process reference, then 8 gloo ranks on cuda:0 at (dp 8,
+     tp 1), full width, bf16, 32 frames of 128^2 in 8 windows (one a
+     rank): each rank's shard shape at the denoiser's conv_in, the step's
+     all_reduce calls and bytes equal to the gather's closed form, every
+     rank's latents bitwise equal to the reference, K1-K4 launched on
+     every rank, each rank's peak memory; every signature replayed as in
+     6; the budget (its n-card figures projections) from 6's timings and
+     19's window time.
 Launch signatures are recorded by wrapping each kernel module's launch
 function, K5's `_launch_bwd` included; a K5 signature is replayed with
 o and lse from the plain forward on its seeded inputs, at 4 bf16 ulps.
@@ -215,6 +234,13 @@ and prints no `kernels` line.
     python3 chip_smoke.py mesh       # build, then phase 18 alone
 
 runs the mesh phase and its replays only, and prints no `kernels` line.
+
+    python3 chip_smoke.py mfu        # build, main, then phase 19
+    python3 chip_smoke.py budget     # build, the a2v call, a window's
+                                     # time, then phase 20
+
+run main (for its step time) or the a2v call (for its timings) first,
+then their phase and its replays only, and print no `kernels` line.
 This script imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -433,7 +459,8 @@ def check_k1(torch, A):
         rows[timed] = row
         if rec is None:  # the hottest shape: the denoiser's level-0 bank attention
             rec = dict(row, rows=rows)
-    # the f32 route of dot_product_attention (wav2vec2 on audio over ~20 s):
+    # the f32 route of dot_product_attention (wav2vec2, 50 frames a second,
+    # on audio of 10.24 s or more):
     # K1 in bf16 between two casts, against the f32 plain version; its error
     # is the inputs' bf16 rounding
     name, shape = "f32 route (wav2vec2 >= 512 frames)", (1, 600, 12, 64)
@@ -798,7 +825,7 @@ def run_main(torch, ops, Pose2VideoPipeline):
     per_step = {k: n / STEPS for k, n in pipe.phase_launches["denoise"].items()}
     del pipe, frames
     torch.cuda.empty_cache()
-    return counts, per_step
+    return counts, per_step, t
 
 
 def run_profile(torch, Pose2VideoPipeline):
@@ -1018,9 +1045,10 @@ def run_a2v(torch, ops, kernel_mods, tmp: str):
     for name, n in counts.items():
         require(sum(c for (k, _), (c, _) in rec.calls.items() if k == name) == n,
                 f"a2v {name}: the recorded launches do not add up to the run's")
+    timings = dict(pipe.timings)
     del pipe, out
     torch.cuda.empty_cache()
-    return counts, rec.calls
+    return counts, rec.calls, timings
 
 
 class LaunchRecorder:
@@ -3249,6 +3277,127 @@ def run_mesh(torch, ops, tmp: str):
     return parts
 
 
+# ---------------------------------------------------------------- mfu, budget
+MFU_MB = 5          # the flagship group: 5 windows x CFG = 10 UNet rows
+MFU_FRAMES = 12     # frames a window
+MFU_ITERS = 3       # timed calls of the group (after one warm-up call)
+
+
+def run_mfu(torch, ops, kernel_mods, card: str, main_timings=None, a2v_timings=None):
+    """The FLOP audit (`mmgt_tpu_torch/tools/mfu_audit.py`) against the card:
+    one flagship denoise group (MFU_MB windows x CFG, MFU_FRAMES frames,
+    512^2, bf16, full width, seeded weights and inputs) through the
+    denoiser, its launches (counts set to 0 just before, read just after;
+    K1-K4 must launch, K5 not) and signatures recorded, then timed
+    (CUDA events, MFU_ITERS calls); one window's call (2 rows) timed for
+    the budget; the counts over fake tensors, and their utilization at the
+    group's time, main's step (16 frames) and the a2v call's step (80
+    frames). Returns (launches, recorded calls, the window's seconds)."""
+    from mmgt_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline
+    from mmgt_tpu_torch.tools import mfu_audit as MA
+
+    h8 = SIZE // 8
+    pipe = Pose2VideoPipeline.build(torch.bfloat16, device="cuda", seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    args, kw = MA.group_inputs(pipe, MFU_MB, MFU_FRAMES, h8, gen)
+    unet = pipe.denoising_unet
+    with torch.no_grad():
+        out, counts, calls, sec, peak = record_call(torch, ops, kernel_mods,
+                                                    lambda: unet(*args, **kw))
+        require(tuple(out.shape) == (2 * MFU_MB, MFU_FRAMES, h8, h8, 4)
+                and bool(torch.isfinite(out).all()), "mfu: the group's output")
+        require_launches("mfu group", counts, INFERENCE_KERNELS)
+        group_s = MA.time_call(lambda: unet(*args, **kw), iters=MFU_ITERS)
+        wargs, wkw = MA.group_inputs(pipe, 1, MFU_FRAMES, h8, gen)
+        window_s = MA.time_call(lambda: unet(*wargs, **wkw), iters=MFU_ITERS)
+    log(f"mfu: one group ({MFU_MB} windows x CFG = {2 * MFU_MB} rows x {MFU_FRAMES} frames, "
+        f"{SIZE}^2, bf16) {group_s:.4f} s (first call {sec:.3f} s, peak {peak:.2f} GiB); one "
+        f"window (2 rows) {window_s:.4f} s; launches " + json.dumps(counts) + f"; card {card}")
+    del pipe, args, kw, wargs, wkw, out
+    torch.cuda.empty_cache()
+    timed = []
+    if main_timings:
+        timed.append((FRAMES, main_timings["denoise_s"] / STEPS))
+    if a2v_timings:
+        timed.append((A2V_FRAMES, a2v_timings["stage2_denoise_s"] / STEPS))
+    t0 = time.perf_counter()
+    cnt = MA.counts(MFU_MB, MFU_FRAMES, SIZE, A2V_FRAMES, [f for f, _ in timed])
+    rep = MA.report(cnt, group_s, timed)
+    for line in MA.text(rep).splitlines():
+        log("mfu: " + line)
+    log(f"mfu: counted over fake tensors in {time.perf_counter() - t0:.1f} s (CPU)")
+    log(json.dumps({"mfu": rep, "card": card}))
+    require(rep["group"]["utilization"]["executed"] <= 1.0, "mfu: above the peak")
+    return counts, calls, window_s
+
+
+def budget_rank(margs, layout, out_dir: str):
+    """One rank of the budget phase: the tool's rank (`budget_8chip.
+    rank_setup` / `rank_step`) with its step's kernel launches recorded;
+    its result and signatures into rank<r>.pt."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mmgt_tpu_torch.device import disable_tf32
+    from mmgt_tpu_torch.ops import attention as A
+    from mmgt_tpu_torch.ops import fused_ln as L
+    from mmgt_tpu_torch.ops import motion_attention as M
+    from mmgt_tpu_torch.ops import norms as N
+    from mmgt_tpu_torch.parallel.mesh import destroy
+    from mmgt_tpu_torch.tools import budget_8chip as B
+
+    disable_tf32()
+    ctx = B.rank_setup(margs, layout)
+    rec = LaunchRecorder(torch, {"flash_attention": A, "group_norm": N, "ln_projections": L,
+                                 "motion_attention": M, "flash_attention_bwd": A})
+    res = B.rank_step(ctx, B.windows(layout), layout, around=rec)
+    for name, n in res["launches"].items():
+        require(sum(c for (k, _), (c, _) in rec.calls.items() if k == name) == n,
+                f"budget rank {ctx['mesh'].rank} {name}: the recorded launches do not add up")
+    res["calls"] = {k: [c, None if ln is None else ln.cpu()] for k, (c, ln) in rec.calls.items()}
+    torch.save(res, os.path.join(out_dir, f"rank{ctx['mesh'].rank}.pt"))
+    destroy(ctx["mesh"])
+
+
+def run_budget(torch, tmp: str, card: str, a2v_timings, window_s: float):
+    """The n-card budget (`mmgt_tpu_torch/tools/budget_8chip.py`): its
+    single-process reference here, then its 8 gloo ranks on cuda:0 at
+    (dp 8, tp 1), full width, bf16, 16 x 16 latents, 32 frames in 8
+    windows (`budget_rank`); the tool's three checks (each rank's shard
+    shape, the step's all_reduce calls and bytes against the closed form,
+    the latents bitwise equal to one process at one window a call), K1-K4
+    launched on every rank; then the budget from the a2v call's timings
+    and main's window time. Returns (rank 0's launches, every rank's
+    signatures)."""
+    import shutil
+
+    from mmgt_tpu_torch.tools import budget_8chip as B
+
+    layout = B.default_layout(device="cuda:0")
+    store = os.path.join(tmp, "budget")
+    os.makedirs(store, exist_ok=True)
+    t0 = time.perf_counter()
+    results, ref, fails = B.run(layout, rank_fn=budget_rank, store=store)
+    log(f"budget: the reference and {layout['devices']} gloo ranks on cuda:0, "
+        f"{time.perf_counter() - t0:.1f} s in all; closed form " +
+        json.dumps(B.gather_closed_form(layout)))
+    calls = {}
+    for res in results:
+        log(f"budget rank {res['rank']}: conv_in {res['shapes']}; all_reduce {res['stats']}; "
+            f"step {res['s']:.3f} s; peak {res['peak_gib']:.2f} GiB; latents bitwise equal to "
+            f"one process: {torch.equal(res['latents'], ref)}; launches "
+            + json.dumps(res["launches"]) + f"; card {card}")
+        require_launches(f"budget rank {res['rank']}", res["launches"], INFERENCE_KERNELS)
+        for key, (c, lens) in res["calls"].items():
+            calls.setdefault(key, [0, lens])[0] += c
+    require(not fails, "budget: " + "; ".join(fails))
+    out = B.budget(layout["devices"], results[0]["stats"], layout, window_s, a2v_timings)
+    log(json.dumps({"budget": out, "projection": f"{layout['devices']} cards from one card's "
+                    "measurements", "card": card}))
+    shutil.rmtree(store, ignore_errors=True)
+    return results[0]["launches"], calls
+
+
 INFERENCE_KERNELS = ("flash_attention", "group_norm", "ln_projections", "motion_attention")
 KERNEL_META = {
     "flash_attention": ("K1 flash attention (two-segment, kv_lens, LSE)", "cuda",
@@ -3287,8 +3436,8 @@ def main(argv) -> int:
     from mmgt_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline
     from mmgt_tpu_torch.training.stage2 import Stage2Trainer
 
-    if argv not in ([], ["profile"], ["mesh"]):
-        print("usage: python3 chip_smoke.py [profile | mesh]", file=sys.stderr)
+    if argv not in ([], ["profile"], ["mesh"], ["mfu"], ["budget"]):
+        print("usage: python3 chip_smoke.py [profile | mesh | mfu | budget]", file=sys.stderr)
         return 2
     disable_tf32()
 
@@ -3308,6 +3457,24 @@ def main(argv) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             for tag, (counts_, calls_) in run_mesh(torch, ops, tmp).items():
                 check_a2v_calls(torch, calls_, A, N, L, M, tag, {})
+    elif argv == ["mfu"]:  # main first, for its step time
+        kernel_mods = {"flash_attention": A, "group_norm": N, "ln_projections": L,
+                       "motion_attention": M, "flash_attention_bwd": A}
+        _, _, main_timings = run_main(torch, ops, Pose2VideoPipeline)
+        _, calls_, _ = run_mfu(torch, ops, kernel_mods, card, main_timings)
+        check_a2v_calls(torch, calls_, A, N, L, M, "mfu", {})
+    elif argv == ["budget"]:  # the a2v call first, for its timings
+        from mmgt_tpu_torch.tools.mfu_audit import time_group
+
+        kernel_mods = {"flash_attention": A, "group_norm": N, "ln_projections": L,
+                       "motion_attention": M, "flash_attention_bwd": A}
+        with tempfile.TemporaryDirectory() as tmp:
+            _, _, a2v_timings = run_a2v(torch, ops, kernel_mods, tmp)
+            window_s = time_group(torch.device("cuda"), 1, MFU_FRAMES, SIZE, SEED)
+            log(f"budget: one window (2 rows x {MFU_FRAMES} frames, {SIZE}^2) {window_s:.4f} s")
+            torch.cuda.empty_cache()
+            _, calls_ = run_budget(torch, tmp, card, a2v_timings, window_s)
+            check_a2v_calls(torch, calls_, A, N, L, M, "budget", {})
     else:
         kernel_mods = {"flash_attention": A, "group_norm": N, "ln_projections": L,
                        "motion_attention": M, "flash_attention_bwd": A}
@@ -3323,13 +3490,13 @@ def main(argv) -> int:
         check_grads(torch, ops, A, N, L, M)
         log(f"kernels + gradients: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        counts, per_step = run_main(torch, ops, Pose2VideoPipeline)
+        counts, per_step, main_timings = run_main(torch, ops, Pose2VideoPipeline)
         run_small(torch, Pose2VideoPipeline)
         log(f"main + small: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         checked = {}
         with tempfile.TemporaryDirectory() as tmp:
-            a2v_counts, a2v_calls = run_a2v(torch, ops, kernel_mods, tmp)
+            a2v_counts, a2v_calls, a2v_timings = run_a2v(torch, ops, kernel_mods, tmp)
             a2v_per_kernel = check_a2v_calls(torch, a2v_calls, A, N, L, M, "a2v", checked)
             run_a2v_small(torch, tmp)
             log(f"a2v + a2v_small: {time.perf_counter() - t0:.1f} s")
@@ -3380,6 +3547,17 @@ def main(argv) -> int:
             for tag, (counts_, calls_) in run_mesh(torch, ops, tmp).items():
                 paths[tag] = dict(launches=counts_, calls=check_a2v_calls(
                     torch, calls_, A, N, L, M, tag, checked))
+            t0 = time.perf_counter()
+            counts_, calls_, window_s = run_mfu(torch, ops, kernel_mods, card, main_timings,
+                                                a2v_timings)
+            paths["mfu"] = dict(launches=counts_, calls=check_a2v_calls(
+                torch, calls_, A, N, L, M, "mfu", checked))
+            log(f"mfu: {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            counts_, calls_ = run_budget(torch, tmp, card, a2v_timings, window_s)
+            paths["budget"] = dict(launches=counts_, calls=check_a2v_calls(
+                torch, calls_, A, N, L, M, "budget", checked))
+            log(f"budget: {time.perf_counter() - t0:.1f} s")
         kernels = []
         for name, r in recs.items():
             title, route, source, replaces = KERNEL_META[name]

@@ -267,7 +267,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `dot_product_attention` (`mmgt_tpu/ops/attention.py:679-688`): the plain
     math (`attention_plain`, which is `_xla_attention`'s) on the CPU or when
     either side has fewer than 512 tokens (CLIP's 257, SMGA's 80-82,
-    wav2vec2's frames of a clip up to ~20 s), K1 on a CUDA tensor otherwise.
+    wav2vec2's 50 frames a second of a clip shorter than 10.24 s), K1 on a
+    CUDA tensor otherwise.
     K1 takes bf16 only: f32 inputs (wav2vec2 on long audio) are rounded to
     bf16 around it and its output cast back; chip_smoke.py states that
     route's error against the f32 plain version."""

@@ -50,7 +50,8 @@ new = {"mmgt_tpu_torch.config", "mmgt_tpu_torch.data.dsp", "mmgt_tpu_torch.data.
        "mmgt_tpu_torch.parallel", "mmgt_tpu_torch.parallel.mesh",
        "mmgt_tpu_torch.parallel.collectives", "mmgt_tpu_torch.parallel.launch",
        "mmgt_tpu_torch.tools.fewstep_quality", "mmgt_tpu_torch.tools.synth_weights",
-       "mmgt_tpu_torch.tools.release_check"}
+       "mmgt_tpu_torch.tools.release_check", "mmgt_tpu_torch.tools.mfu_audit",
+       "mmgt_tpu_torch.tools.budget_8chip"}
 assert new <= set(names), sorted(new - set(names))
 """
 
@@ -161,14 +162,18 @@ def test_preprocessing_entry_points_without_cuda_raise(monkeypatch, tmp_path, en
         call()
 
 
-@pytest.mark.parametrize("entry", ["fewstep_quality", "synth_weights", "release_check"])
+@pytest.mark.parametrize("entry", ["fewstep_quality", "synth_weights", "release_check",
+                                   "mfu_audit", "budget_8chip"])
 def test_tool_entry_points_without_cuda_raise(monkeypatch, tmp_path, entry):
-    from mmgt_tpu_torch.tools import fewstep_quality, release_check, synth_weights
+    from mmgt_tpu_torch.tools import (budget_8chip, fewstep_quality, mfu_audit, release_check,
+                                      synth_weights)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = {"fewstep_quality": lambda: fewstep_quality.main(["--size", "64", "--frames", "4"]),
             "synth_weights": lambda: synth_weights.main([str(tmp_path / "w"), "--tiny"]),
             "release_check": lambda: release_check.main(
-                ["--synthetic", "--tiny", "--out", str(tmp_path / "rc")])}[entry]
+                ["--synthetic", "--tiny", "--out", str(tmp_path / "rc")]),
+            "mfu_audit": lambda: mfu_audit.main([]),
+            "budget_8chip": lambda: budget_8chip.main(["--tiny", "--devices", "2"])}[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
