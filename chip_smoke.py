@@ -59,6 +59,15 @@ Phases, in order; any failure exits non-zero:
      weights and draws, three ways as in 5; the keypoints and the frames
      on the card within SMALL_ERR_FACTOR x the plain error against CPU
      f32;
+  7a. bench: `bench_torch.py` (the counterpart of bench.py) in a process
+     of its own at a cut depth (BENCH_ARGS: 16 frames, 2 DDIM steps, the
+     fast and dpm rows at 2 steps, the long row at 48 frames, 5 Stage-1
+     steps; the train row's first step and 2 timed ones) with --trace:
+     exit 0, its result line parsed with every row's seconds, one trace
+     line a row, K1-K4 launched in the flagship row (its launches by
+     phase, counted from 0 in the call) and each in that row's traced
+     device table, K5 in the train row's step and table; every launch
+     signature of both processes recorded and replayed as in 6;
   7b. long240: the audio2vid of 6 on a LONG_SECONDS (9.6 s) clip: 3
      chained Stage-1 slices with motion selection over 3 candidates, 240
      frames, 30 context windows fused each Stage-2 step (the JAX bench's
@@ -241,6 +250,12 @@ runs the mesh phase and its replays only, and prints no `kernels` line.
 
 run main (for its step time) or the a2v call (for its timings) first,
 then their phase and its replays only, and print no `kernels` line.
+
+    python3 chip_smoke.py bench      # build, then phase 7a alone
+
+The profile mode and the bench phase trace through
+`mmgt_tpu_torch/utils/profiling.py` and read the trace with
+`mmgt_tpu_torch/utils/device_trace.py`.
 This script imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -832,8 +847,6 @@ def run_profile(torch, Pose2VideoPipeline):
     """One full-width denoise step under torch.profiler: device time by
     kernel, the step's wall time and the device's idle share. Not part of
     the default run (`python3 chip_smoke.py profile`)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from mmgt_tpu_torch.diffusion.solver import init_solver_carry, solver_tables_for
     from mmgt_tpu_torch.pipelines.context import compute_context_schedule
 
@@ -854,10 +867,7 @@ def run_profile(torch, Pose2VideoPipeline):
     t0 = time.perf_counter()
     step()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step()
-    report_profile(prof, "one denoise step, 2 windows x CFG = 48 frame rows, 512x512",
-                   wall_ms)
+    report_profile(step, "one denoise step, 2 windows x CFG = 48 frame rows, 512x512", wall_ms)
     report_k2_calls(torch, step)
     del cond
     # the VAE decode chunk (tools/profile_vae.py's subject): 8 frames of
@@ -872,52 +882,23 @@ def run_profile(torch, Pose2VideoPipeline):
     t0 = time.perf_counter()
     decode()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        decode()
-    report_profile(prof, "the VAE decode chunk: 8 frames, 64^2 latents -> 512x512", wall_ms)
+    report_profile(decode, "the VAE decode chunk: 8 frames, 64^2 latents -> 512x512", wall_ms)
     report_k2_calls(torch, decode)
     del pipe, lat, lat8
     torch.cuda.empty_cache()
 
 
-def report_profile(prof, what: str, wall_ms: float):
-    """Device time by kernel and family, and the idle share of `wall_ms`."""
-    from torch.autograd import DeviceType
+def report_profile(fn, what: str, wall_ms: float):
+    """fn() once under `utils/profiling.trace`: device time by kernel and
+    family from its trace (`utils/device_trace.py`), and the idle share of
+    `wall_ms`."""
+    from mmgt_tpu_torch.utils import device_trace, profiling
 
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:  # device kernels only, no host ops
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
-    families = {}
-    for ms, _, key in rows:
-        fam = next((f for f, pats in PROFILE_FAMILIES if any(p in key for p in pats)), "other")
-        families[fam] = families.get(fam, 0.0) + ms
-    busy = sum(r[0] for r in rows)
-    log(json.dumps({"profile": {
-        "what": what,
-        "wall_ms_unprofiled": wall_ms, "device_busy_ms": busy,
-        "idle_share": max(0.0, 1.0 - busy / wall_ms),
-        "families_ms": {k: round(v, 3) for k, v in sorted(families.items(), key=lambda x: -x[1])},
-        "top": [{"ms": round(ms, 3), "count": n, "kernel": k[:90]} for ms, n, k in rows[:20]],
-    }}))
-
-
-PROFILE_FAMILIES = (
-    ("K1 flash_fwd", ("flash_fwd",)),
-    ("K5 bwd_dsum + bwd_dq + bwd_dkv", ("bwd_dsum", "bwd_dq", "bwd_dkv")),
-    ("K2 gn_resident + gn_stream_*", ("gn_resident", "gn_stream")),
-    ("K3 and K4's W_o: ln_gemm", ("ln_gemm",)),
-    ("K4 kernel A: motion_attn", ("motion_attn",)),
-    ("K4 LayerNorm + pe: ln_pe", ("ln_pe",)),
-    ("cuDNN convolution", ("fprop", "conv", "dgrad", "wgrad")),
-    ("cuBLAS GEMM (Linear, einsum)", ("nvjet", "gemm", "cutlass", "Kernel2")),
-)
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d) as path:
+            fn()
+        rows = device_trace.device_op_table(path)
+    log(json.dumps({"profile": {"what": what, **device_trace.report(rows, wall_ms)}}))
 
 
 def small_run(torch, pipe, dev):
@@ -1277,38 +1258,23 @@ def replay_call(torch, kern, sig, lens, make, picks, tol_for, A, N, L, M, tag):
 
 
 def tiny_a2v(torch, device, dtype):
-    """The a2v_small pipeline (64..128-channel Stage 2 as `small`, a 2-layer
-    CLIP, wav2vec2 and WavLM of width 64, a 1-layer SMGA decoder) with the
-    card's dtypes: Stage 2 and CLIP in `dtype`, the audio encoders and SMGA
-    in f32 (all f32 when `dtype` is). Weights: seeded, copied from one set
-    by the caller."""
+    """The a2v_small pipeline (`small` with the audio stack of
+    `mmgt_tpu_torch/testing.py`'s SMALL widths: a 2-layer CLIP, wav2vec2
+    and WavLM of width 64, a 1-layer SMGA decoder) with the card's dtypes:
+    Stage 2 and CLIP in `dtype`, the audio encoders and SMGA in f32 (all
+    f32 when `dtype` is). Weights: seeded, copied from one set by the
+    caller."""
     from mmgt_tpu_torch.config import InferenceConfig
-    from mmgt_tpu_torch.data.audio import AudioProcessor, WavLMFeatureExtractor
     from mmgt_tpu_torch.models.audio_proj import AudioProjModel
-    from mmgt_tpu_torch.models.clip_vision import CLIPVisionModel
-    from mmgt_tpu_torch.models.smga import GestureDecoder
-    from mmgt_tpu_torch.models.wav2vec2 import Wav2Vec2Model
-    from mmgt_tpu_torch.models.wavlm import WavLMModel
-    from mmgt_tpu_torch.pipelines.audio2vid import Audio2VideoPipeline
     from mmgt_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline
-    from mmgt_tpu_torch.training.stage1 import SMGA
+    from mmgt_tpu_torch.testing import SMALL, small_audio2vid
 
     p2v = tiny_pipeline(torch, Pose2VideoPipeline, device, dtype)
-    p2v.audio_proj = AudioProjModel(blocks=2, channels=64, intermediate_dim=64).to(device, dtype)
-    f32 = torch.float32
-    enc = lambda m, dt: m.to(device, dt).eval()
+    p2v.audio_proj = AudioProjModel(**SMALL["audio_proj"]).to(device, dtype)
     cfg = InferenceConfig(width=64, height=64, video_length=8, num_inference_steps=2,
                           a2p_sampling_steps=5, context_size=6, context_overlap=2,
                           window_microbatch=None)
-    return Audio2VideoPipeline(
-        smga=SMGA(feature_type="wavlm", model=enc(GestureDecoder(
-            seq_len=80, latent_dim=64, ff_size=128, num_layers=1, num_heads=4,
-            cond_feature_dim=64 + 35), f32)),
-        pose2vid=p2v,
-        clip_model=enc(CLIPVisionModel(hidden_dim=64, num_layers=2, heads=4), dtype),
-        audio_processor=AudioProcessor(enc(Wav2Vec2Model(64, 2, 4, 128), f32)),
-        wavlm_extractor=WavLMFeatureExtractor(enc(WavLMModel(64, 2, 4, 128), f32)),
-        config=cfg)
+    return small_audio2vid(p2v, cfg, device, dtype, feature_type="wavlm")
 
 
 def a2v_models(pipe):
@@ -1601,19 +1567,15 @@ def run_dpm_small(torch, Pose2VideoPipeline):
 
 def tiny_pose2img(torch, device, dtype):
     """The small pipeline's widths, no audio or motion modules."""
-    from mmgt_tpu_torch.models.pose_guider import PoseGuider
-    from mmgt_tpu_torch.models.unet3d import DenoisingUNet3D
-    from mmgt_tpu_torch.models.unet_ref import ReferenceUNet2D
-    from mmgt_tpu_torch.models.vae import AutoencoderKL
     from mmgt_tpu_torch.pipelines.pose2img import Pose2ImagePipeline
+    from mmgt_tpu_torch.testing import SMALL, stage2_model
 
     torch.manual_seed(SEED)
-    kw = dict(block_out_channels=(64, 128, 128, 128), heads=2)
     pipe = Pose2ImagePipeline(
-        vae=AutoencoderKL(block_out_channels=(32, 32, 64, 64)),
-        reference_unet=ReferenceUNet2D(**kw),
-        denoising_unet=DenoisingUNet3D(**kw, use_audio_module=False, use_motion_module=False),
-        pose_guider=PoseGuider(64, (8, 16, 16, 32)))
+        vae=stage2_model(SMALL, "vae"), reference_unet=stage2_model(SMALL, "reference_unet"),
+        denoising_unet=stage2_model(SMALL, "denoising_unet", use_audio_module=False,
+                                    use_motion_module=False),
+        pose_guider=stage2_model(SMALL, "pose_guider"))
     for m in pipe.models().values():
         m.to(device=device, dtype=dtype)
     pipe.init_params(SEED, std=0.05)
@@ -2216,21 +2178,11 @@ def run_verify_weights(torch, ops, kernel_mods, tmp: str):
 
 # ---------------------------------------------------------------- training
 def make_train_batch(torch, b: int, frames: int, size: int, seed: int, device="cpu"):
-    """A seeded random Stage-2 batch, so that the loss is not trivially 0."""
-    g = torch.Generator().manual_seed(seed)
-    h8 = size // 8
-    rand = lambda *s: torch.rand(*s, generator=g)
-    batch = dict(
-        pixel_values=rand(b, frames, size, size, 3) * 2 - 1,
-        ref_image=rand(b, size, size, 3) * 2 - 1,
-        clip_embed=torch.randn(b, 1, 768, generator=g),
-        audio_embeds=torch.randn(b, frames, 5, 12, 768, generator=g),
-        pose_video=rand(b, frames, size, size, 3),
-        masks=[tuple((rand(b, frames, (h8 >> lv) ** 2) > 0.4).float() for _ in range(3))
-               for lv in range(3)],
-    )
-    return {k: ([tuple(m.to(device) for m in lv) for lv in v] if k == "masks"
-                else v.to(device)) for k, v in batch.items()}
+    """A seeded random Stage-2 batch (`mmgt_tpu_torch/testing.py`), so that
+    the loss is not trivially 0."""
+    from mmgt_tpu_torch.testing import train_batch
+
+    return train_batch(b, frames, size, seed, device)
 
 
 def run_train(torch, ops, Stage2Trainer, kernel_mods, tmp: str):
@@ -2299,22 +2251,17 @@ def run_train(torch, ops, Stage2Trainer, kernel_mods, tmp: str):
 
 
 def tiny_pipeline(torch, Pose2VideoPipeline, device, dtype):
-    """The small pipeline's models (64..128 channels, 2 heads) with seeded
-    weights."""
+    """The small pipeline's models (`mmgt_tpu_torch/testing.py`'s SMALL
+    widths; its audio projection takes full-width (5, 12, 768) audio
+    embeddings) with seeded weights."""
     from mmgt_tpu_torch.models.audio_proj import AudioProjModel
-    from mmgt_tpu_torch.models.pose_guider import PoseGuider
-    from mmgt_tpu_torch.models.unet3d import DenoisingUNet3D
-    from mmgt_tpu_torch.models.unet_ref import ReferenceUNet2D
-    from mmgt_tpu_torch.models.vae import AutoencoderKL
+    from mmgt_tpu_torch.testing import SMALL, stage2_models
 
     torch.manual_seed(SEED)
-    kw = dict(block_out_channels=(64, 128, 128, 128), heads=2)
-    pipe = Pose2VideoPipeline(
-        vae=AutoencoderKL(block_out_channels=(32, 32, 64, 64)),
-        reference_unet=ReferenceUNet2D(**kw), denoising_unet=DenoisingUNet3D(**kw),
-        pose_guider=PoseGuider(64, (8, 16, 16, 32)),
-        audio_proj=AudioProjModel(intermediate_dim=64), context_size=6,
-        context_overlap=2)
+    models = stage2_models(SMALL)
+    models["audio_proj"] = AudioProjModel(
+        intermediate_dim=SMALL["audio_proj"]["intermediate_dim"])
+    pipe = Pose2VideoPipeline(**models, context_size=6, context_overlap=2)
     for m in pipe.models().values():
         m.to(device=device, dtype=dtype)
     pipe.init_params(SEED, std=0.05)
@@ -2843,8 +2790,6 @@ def run_soak(torch, ops, kernel_mods):
 def run_profile_train(torch, Stage2Trainer):
     """One full-width train step under torch.profiler (after a warm-up
     step): device time by kernel family and the idle share."""
-    from torch.profiler import ProfilerActivity, profile
-
     trainer = Stage2Trainer.build(torch.bfloat16, device="cuda", seed=SEED, remat=True)
     state = trainer.init_state()
     batch = make_train_batch(torch, 1, TRAIN_FRAMES, SIZE, SEED + 9, "cuda")
@@ -2858,9 +2803,7 @@ def run_profile_train(torch, Stage2Trainer):
     t0 = time.perf_counter()
     step()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step()
-    report_profile(prof, "one train step: 12 frames, bs 1, 512x512, remat", wall_ms)
+    report_profile(step, "one train step: 12 frames, bs 1, 512x512, remat", wall_ms)
     report_k2_calls(torch, step)
 
 
@@ -2868,8 +2811,6 @@ def run_profile_train_image(torch):
     """One full-width image-pretrain step (256^2, batch 4, random batch)
     under torch.profiler after a warm-up step; then one SMGA step at
     A2P_BATCH likewise."""
-    from torch.profiler import ProfilerActivity, profile
-
     from mmgt_tpu_torch.training.stage1 import SMGA
     from mmgt_tpu_torch.training.stage2_image import Stage2ImageTrainer
 
@@ -2878,9 +2819,7 @@ def run_profile_train_image(torch):
         t0 = time.perf_counter()
         step()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step()
-        report_profile(prof, what, wall_ms)
+        report_profile(step, what, wall_ms)
 
     trainer = Stage2ImageTrainer.build(torch.bfloat16, device="cuda", seed=SEED)
     state = trainer.init_state()
@@ -3398,6 +3337,108 @@ def run_budget(torch, tmp: str, card: str, a2v_timings, window_s: float):
     return results[0]["launches"], calls
 
 
+# ------------------------------------------------------------------ bench
+# bench_torch.py at a cut depth: 16 frames, 2 steps, fast and dpm at 2
+# steps, long at 3 x 16 frames (one Stage-1 slice; a2v and long240 chain
+# slices), 5 Stage-1 steps (each traced call's trace is ~250 MB at 50,
+# most of it Stage 1's small ops, which launch no kernel of the port),
+# the train row's first step and 2 timed
+BENCH_ARGS = ("--frames", "16", "--steps", "2", "--fast-steps", "2", "--dpm-steps", "2",
+              "--stage1-steps", "5")
+BENCH_ROWS = ("audio2vid", "long48", "fast2", "dpm2", "train_stage2")
+BENCH_TIMEOUT_S = 300
+BENCH_CHILD = "bench-child"   # argv[1] of the recording child (`bench_child`)
+# a kernel name of each kernel's family in a device table
+KERNEL_TRACE_NAMES = {"flash_attention": "flash_fwd", "group_norm": "gn_resident",
+                      "ln_projections": "ln_gemm", "motion_attention": "motion_attn",
+                      "flash_attention_bwd": "bwd_dq"}
+
+
+def bench_child(out_dir: str, argv) -> int:
+    """`bench_torch.main(argv)` under the launch recorder, its signatures
+    into out_dir/calls.pt; its train row's process is such a child too
+    (into out_dir/train)."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import bench_torch
+    from mmgt_tpu_torch.ops import attention as A
+    from mmgt_tpu_torch.ops import fused_ln as L
+    from mmgt_tpu_torch.ops import motion_attention as M
+    from mmgt_tpu_torch.ops import norms as N
+
+    command = bench_torch.train_row_command
+    bench_torch.train_row_command = lambda a: [
+        sys.executable, os.path.abspath(__file__), BENCH_CHILD, os.path.join(out_dir, "train"),
+        *command(a)[2:]]
+    os.makedirs(out_dir, exist_ok=True)
+    with LaunchRecorder(torch, {"flash_attention": A, "group_norm": N, "ln_projections": L,
+                                "motion_attention": M, "flash_attention_bwd": A}) as rec:
+        rc = bench_torch.main(list(argv))
+    torch.save({k: [c, None if ln is None else ln.cpu()] for k, (c, ln) in rec.calls.items()},
+               os.path.join(out_dir, "calls.pt"))
+    return rc
+
+
+def run_bench(tmp: str, card: str):
+    """bench_torch.py in a process of its own (`bench_child`) at BENCH_ARGS
+    with --trace: exit 0, its result line parsed with every row's seconds,
+    a trace line for each of BENCH_ROWS; K1-K4 launched in the flagship row
+    (its launches by phase, counted from 0 in the call) and each in that
+    row's traced device table; K5 launched in the train row's step and in
+    its table. Returns (the flagship's launches, K5 the train step's; the
+    signatures every row launched, the train row's process included)."""
+    import torch
+
+    from mmgt_tpu_torch.utils.device_trace import categorize
+
+    rec_dir = os.path.join(tmp, "bench_calls")
+    cmd = [sys.executable, os.path.abspath(__file__), BENCH_CHILD, rec_dir, *BENCH_ARGS,
+           "--trace", os.path.join(tmp, "bench_traces")]
+    t0 = time.perf_counter()
+    rc = subprocess.run(cmd, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    sec = time.perf_counter() - t0
+    require(rc.returncode == 0, f"bench: exit {rc.returncode}: {rc.stderr[-3000:]}")
+    lines = [json.loads(t) for t in rc.stdout.splitlines() if t.startswith("{")]
+    results = [x for x in lines if "metric" in x]
+    traces = {x["trace"]["row"]: x["trace"] for x in lines if "trace" in x}
+    require(len(results) == 1, f"bench: {len(results)} result lines")
+    line, comp = results[0], results[0]["components"]
+    require(set(traces) == set(BENCH_ROWS), f"bench: traced rows {sorted(traces)}")
+    rows = ("audio2vid_long48_s", "audio2vid_fast2_s", "audio2vid_dpm2_s", "train_stage2_step_s")
+    for key in rows:
+        require(math.isfinite(comp[key]) and comp[key] > 0, f"bench: {key} {comp[key]}")
+    require(math.isfinite(line["value"]) and comp["train_loss_finite"], "bench: not finite")
+    launches = {k: sum(ph[k] for ph in comp["phase_launches"].values())
+                for k in KERNEL_TRACE_NAMES}
+    launches["flash_attention_bwd"] = comp["train_stage2_launches"]["flash_attention_bwd"]
+    for name, kernel in KERNEL_TRACE_NAMES.items():
+        row = "train_stage2" if name == "flash_attention_bwd" else "audio2vid"
+        family = categorize(kernel)
+        require(launches[name] > 0, f"bench: {name} was not launched in {row}")
+        require(traces[row]["families_ms"].get(family, 0.0) > 0,
+                f"bench: {family} is not in {row}'s device table")
+    calls = {}
+    for part in ("calls.pt", os.path.join("train", "calls.pt")):
+        for key, (c, lens) in torch.load(os.path.join(rec_dir, part),
+                                         weights_only=False).items():
+            calls.setdefault(key, [0, lens])[0] += c
+    for name in KERNEL_TRACE_NAMES:
+        require(any(k == name for k, _ in calls), f"bench: no signature of {name} recorded")
+    log(f"bench: bench_torch.py {' '.join(BENCH_ARGS)} --trace in {sec:.1f} s; "
+        f"{line['metric']} {line['value']:.3f} s, peak {comp['peak_gib']:.2f} GiB; "
+        + ", ".join(f"{k} {comp[k]:.3f} s" for k in rows)
+        + f"; setup {json.dumps(line['setup'])}; mfu " + json.dumps(
+            {k: v for k, v in line["mfu"].items() if k != "flops"})
+        + f"; {len(calls)} signatures recorded; card {card}")
+    for row, tr in traces.items():
+        log(f"bench: {row} traced: busy {tr['device_busy_ms']:.1f} ms of "
+            f"{tr['wall_ms_unprofiled']:.1f}, idle {tr['idle_share']:.3f}; "
+            + json.dumps(tr["families_ms"]))
+    log(json.dumps({"bench": line}))
+    return launches, calls
+
+
 INFERENCE_KERNELS = ("flash_attention", "group_norm", "ln_projections", "motion_attention")
 KERNEL_META = {
     "flash_attention": ("K1 flash attention (two-segment, kv_lens, LSE)", "cuda",
@@ -3436,8 +3477,9 @@ def main(argv) -> int:
     from mmgt_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline
     from mmgt_tpu_torch.training.stage2 import Stage2Trainer
 
-    if argv not in ([], ["profile"], ["mesh"], ["mfu"], ["budget"]):
-        print("usage: python3 chip_smoke.py [profile | mesh | mfu | budget]", file=sys.stderr)
+    if argv not in ([], ["profile"], ["mesh"], ["mfu"], ["budget"], ["bench"]):
+        print("usage: python3 chip_smoke.py [profile | mesh | mfu | budget | bench]",
+              file=sys.stderr)
         return 2
     disable_tf32()
 
@@ -3475,6 +3517,10 @@ def main(argv) -> int:
             torch.cuda.empty_cache()
             _, calls_ = run_budget(torch, tmp, card, a2v_timings, window_s)
             check_a2v_calls(torch, calls_, A, N, L, M, "budget", {})
+    elif argv == ["bench"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            _, calls_ = run_bench(tmp, card)
+            check_a2v_calls(torch, calls_, A, N, L, M, "bench", {})
     else:
         kernel_mods = {"flash_attention": A, "group_norm": N, "ln_projections": L,
                        "motion_attention": M, "flash_attention_bwd": A}
@@ -3500,7 +3546,12 @@ def main(argv) -> int:
             a2v_per_kernel = check_a2v_calls(torch, a2v_calls, A, N, L, M, "a2v", checked)
             run_a2v_small(torch, tmp)
             log(f"a2v + a2v_small: {time.perf_counter() - t0:.1f} s")
-            paths = {}
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            counts_, calls_ = run_bench(tmp, card)
+            paths = {"bench": dict(launches=counts_, calls=check_a2v_calls(
+                torch, calls_, A, N, L, M, "bench", checked))}
+            log(f"bench: {time.perf_counter() - t0:.1f} s")
             for tag, run in (("long240", lambda: run_long240(torch, ops, kernel_mods, tmp)),
                              ("dpm", lambda: run_dpm(torch, ops, kernel_mods)),
                              ("dpm_small", lambda: run_dpm_small(torch, Pose2VideoPipeline)),
@@ -3589,4 +3640,6 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [BENCH_CHILD]:
+        sys.exit(bench_child(sys.argv[2], sys.argv[3:]))
     sys.exit(main(sys.argv[1:]))

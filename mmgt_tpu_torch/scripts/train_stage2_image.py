@@ -64,19 +64,17 @@ def config_from_args(args):
 
 
 def tiny_pipeline(device, dtype=torch.float32, seed: int = 0):
-    """The JAX CLI's --tiny nets: UNets (16, 32, 32, 32) with 4 heads, a
-    (16, 16, 32, 32) VAE, a (4, 8, 8, 16) PoseGuider; seeded weights."""
-    from mmgt_tpu_torch.models.pose_guider import PoseGuider
-    from mmgt_tpu_torch.models.unet3d import DenoisingUNet3D
-    from mmgt_tpu_torch.models.unet_ref import ReferenceUNet2D
-    from mmgt_tpu_torch.models.vae import AutoencoderKL
+    """The JAX CLI's --tiny nets (`mmgt_tpu_torch/testing.py`'s DRILL):
+    UNets (16, 32, 32, 32) with 4 heads, a (16, 16, 32, 32) VAE, a (4, 8,
+    8, 16) PoseGuider; seeded weights."""
     from mmgt_tpu_torch.pipelines.pose2img import Pose2ImagePipeline
+    from mmgt_tpu_torch.testing import DRILL, stage2_model
 
-    tiny = dict(block_out_channels=(16, 32, 32, 32), heads=4)
     pipe = Pose2ImagePipeline(
-        vae=AutoencoderKL((16, 16, 32, 32)), reference_unet=ReferenceUNet2D(**tiny),
-        denoising_unet=DenoisingUNet3D(use_motion_module=False, use_audio_module=False, **tiny),
-        pose_guider=PoseGuider(16, (4, 8, 8, 16)))
+        vae=stage2_model(DRILL, "vae"), reference_unet=stage2_model(DRILL, "reference_unet"),
+        denoising_unet=stage2_model(DRILL, "denoising_unet", use_motion_module=False,
+                                    use_audio_module=False),
+        pose_guider=stage2_model(DRILL, "pose_guider"))
     for m in pipe.models().values():
         m.to(device=device, dtype=dtype)
     pipe.init_params(seed, std=0.05)

@@ -27,6 +27,7 @@ Exit code 0 = every artifact that was found converted cleanly (and, with
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import sys
 import traceback
@@ -60,24 +61,15 @@ _BF16 = ("vae", "reference_unet", "denoising_unet", "pose_guider", "audio_proj",
 
 
 def tiny_models() -> Dict[str, Callable[..., nn.Module]]:
-    """The tiny widths of the drills: the Stage-2 models of the JAX
-    training CLIs' --tiny (UNets (16, 32, 32, 32) with 4 heads) and a
-    one-layer SMGA decoder, `smga(cond_dim)`."""
-    from mmgt_tpu_torch.models.audio_proj import AudioProjModel
-    from mmgt_tpu_torch.models.pose_guider import PoseGuider
+    """The tiny widths of the drills (`mmgt_tpu_torch/testing.py`'s DRILL):
+    the Stage-2 models of the JAX training CLIs' --tiny (UNets (16, 32, 32,
+    32) with 4 heads) and a one-layer SMGA decoder, `smga(cond_dim)`."""
     from mmgt_tpu_torch.models.smga import GestureDecoder
-    from mmgt_tpu_torch.models.unet3d import DenoisingUNet3D
-    from mmgt_tpu_torch.models.unet_ref import ReferenceUNet2D
-    from mmgt_tpu_torch.models.vae import AutoencoderKL
+    from mmgt_tpu_torch.testing import DRILL, STAGE2, stage2_model
 
-    unet = dict(block_out_channels=(16, 32, 32, 32), heads=4)
-    return {"vae": lambda: AutoencoderKL((16, 16, 32, 32)),
-            "reference_unet": lambda: ReferenceUNet2D(**unet),
-            "denoising_unet": lambda: DenoisingUNet3D(**unet),
-            "pose_guider": lambda: PoseGuider(16, (4, 8, 8, 16)),
-            "audio_proj": lambda: AudioProjModel(intermediate_dim=32),
-            "smga": lambda cond_dim: GestureDecoder(latent_dim=64, ff_size=64, num_layers=1,
-                                                    num_heads=4, cond_feature_dim=cond_dim)}
+    out = {n: functools.partial(stage2_model, DRILL, n) for n in STAGE2}
+    out["smga"] = lambda cond_dim: GestureDecoder(cond_feature_dim=cond_dim, **DRILL["smga"])
+    return out
 
 
 def _models(tiny: bool = False) -> Dict[str, Callable[[], nn.Module]]:

@@ -77,25 +77,10 @@ def default_layout(**kw) -> Dict:
     return layout
 
 
-def tiny_models() -> Dict:
-    """The Stage-2 models at the drills' tiny widths
-    (`scripts/verify_weights.py:tiny_models`, which imports the audio
-    stack: seconds a rank)."""
-    from mmgt_tpu_torch.models.audio_proj import AudioProjModel
-    from mmgt_tpu_torch.models.pose_guider import PoseGuider
-    from mmgt_tpu_torch.models.unet3d import DenoisingUNet3D
-    from mmgt_tpu_torch.models.unet_ref import ReferenceUNet2D
-    from mmgt_tpu_torch.models.vae import AutoencoderKL
-
-    unet = dict(block_out_channels=(16, 32, 32, 32), heads=4)
-    return dict(vae=AutoencoderKL((16, 16, 32, 32)), reference_unet=ReferenceUNet2D(**unet),
-                denoising_unet=DenoisingUNet3D(**unet), pose_guider=PoseGuider(16, (4, 8, 8, 16)),
-                audio_proj=AudioProjModel(intermediate_dim=32))
-
-
 def build(layout: Dict, window_microbatch: Optional[int] = None):
     """The Stage-2 pipeline of the layout on its device, seeded weights."""
     from mmgt_tpu_torch.pipelines.pose2vid import Pose2VideoPipeline, materialize
+    from mmgt_tpu_torch.testing import DRILL, stage2_models
 
     dev = torch.device(layout["device"])
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
@@ -104,7 +89,7 @@ def build(layout: Dict, window_microbatch: Optional[int] = None):
     if not layout["tiny"]:
         return Pose2VideoPipeline.build(dtype, device=dev, seed=layout["seed"], **kw)
     with torch.device("meta"):
-        models = tiny_models()
+        models = stage2_models(DRILL)
     pipe = Pose2VideoPipeline(**materialize(models, dev, dtype), **kw)
     pipe.init_params(layout["seed"])
     return pipe

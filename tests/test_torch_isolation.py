@@ -1,8 +1,8 @@
 """mmgt_tpu_torch stands alone: importing it and every module in it pulls
 in no jax, flax, safetensors or mmgt_tpu (checked in a subprocess, since
-this test process has imported jax already), `chip_smoke.py` imports none
-of them anywhere, and the port's entry points refuse to run without a
-card unless the caller asks for the CPU."""
+this test process has imported jax already), `chip_smoke.py` and
+`bench_torch.py` import none of them anywhere, and the port's entry points
+refuse to run without a card unless the caller asks for the CPU."""
 import ast
 import os
 import subprocess
@@ -51,7 +51,8 @@ new = {"mmgt_tpu_torch.config", "mmgt_tpu_torch.data.dsp", "mmgt_tpu_torch.data.
        "mmgt_tpu_torch.parallel.collectives", "mmgt_tpu_torch.parallel.launch",
        "mmgt_tpu_torch.tools.fewstep_quality", "mmgt_tpu_torch.tools.synth_weights",
        "mmgt_tpu_torch.tools.release_check", "mmgt_tpu_torch.tools.mfu_audit",
-       "mmgt_tpu_torch.tools.budget_8chip"}
+       "mmgt_tpu_torch.tools.budget_8chip", "mmgt_tpu_torch.utils.profiling",
+       "mmgt_tpu_torch.utils.device_trace", "mmgt_tpu_torch.testing"}
 assert new <= set(names), sorted(new - set(names))
 """
 
@@ -62,18 +63,35 @@ def test_port_imports_no_jax_flax_or_mmgt_tpu():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-def test_chip_smoke_imports_no_jax_flax_safetensors_or_mmgt_tpu():
-    """Every import statement of chip_smoke.py, inside functions too."""
-    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+def script_imports(name: str) -> set:
+    """The modules of every import statement of a script at the root of the
+    repository, inside functions too."""
+    tree = ast.parse(open(os.path.join(REPO, name)).read())
     mods = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             mods |= {a.name for a in node.names}
         elif isinstance(node, ast.ImportFrom):
             mods.add(node.module or "")
+    return mods
+
+
+def test_chip_smoke_imports_no_jax_flax_safetensors_or_mmgt_tpu():
+    """Every import statement of chip_smoke.py, inside functions too."""
+    mods = script_imports("chip_smoke.py")
     assert "mmgt_tpu_torch" in {m.split(".")[0] for m in mods}
     bad = sorted(m for m in mods
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "safetensors", "mmgt_tpu"))
+    assert not bad, bad
+
+
+def test_bench_torch_imports_no_jax_flax_safetensors_or_mmgt_tpu():
+    """Every import statement of bench_torch.py, inside functions too; it
+    does not import bench.py either."""
+    mods = script_imports("bench_torch.py")
+    assert "mmgt_tpu_torch" in {m.split(".")[0] for m in mods}
+    bad = sorted(m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "flax", "safetensors",
+                                                        "mmgt_tpu", "bench"))
     assert not bad, bad
 
 

@@ -1,7 +1,7 @@
 """The port's FLOP audit (`mmgt_tpu_torch/tools/mfu_audit.py`) on the CPU, at
-the small pipeline's widths of chip_smoke.py (UNet channels 64/128, 2
-heads): one denoise group of 2 windows x CFG = 4 UNet rows of 6 frames at
-8 x 8 latents.
+the small pipeline's widths (`mmgt_tpu_torch/testing.py`'s SMALL: UNet
+channels 64/128, 2 heads): one denoise group of 2 windows x CFG = 4 UNet
+rows of 6 frames at 8 x 8 latents.
 
   * the count over fake tensors equals the count over real CPU tensors,
     exactly: every family, every kernel's counted and executed FLOPs (the
@@ -37,10 +37,11 @@ from mmgt_tpu_torch.models.unet3d import DenoisingUNet3D
 from mmgt_tpu_torch.ops import attention as A
 from mmgt_tpu_torch.ops import fused_ln as L
 from mmgt_tpu_torch.ops import motion_attention as M
+from mmgt_tpu_torch.testing import SMALL
 from mmgt_tpu_torch.tools import mfu_audit as MA
 from torch_port_util import noise_params
 
-TINY = dict(block_out_channels=(64, 128, 128, 128), heads=2)
+TINY = SMALL["unet"]
 MB, F, H8 = 2, 6, 8
 # the JAX call: one window x CFG of 4 frames at 32 x 32 latents through a
 # UNet of two levels, one layer a block (each layer costs seconds of JAX
