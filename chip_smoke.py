@@ -22,7 +22,8 @@ Phases, in order; any failure exits non-zero:
      ((1, 64, 768) f32, 768 groups; f32 rows within F32_REL_TOL of the
      largest output), K3 at the level-0 q/k/v,
      level-0 GEGLU and level-2 audio-q shapes, K4 at levels 0, 1 and 3, K5
-     at the level-1 bank-concat and level-0 audio self-attention shapes;
+     at the level-1, level-2 and mid bank-concat and level-0 audio
+     self-attention shapes (every K5 shape timed against SDPA's backward);
      K1 (no LSE), K2 and K3 at pose2img's level 0 (2 rows of 4096 tokens),
      K1 with LSE, K2, K3 and K5 at the image pretrain's (4 rows of 1024:
      the denoiser's self keys + bank with kv_lens, the ReferenceNet's own
@@ -671,9 +672,10 @@ def check_k5(torch, A):
     at the largest |value| of each of dq, dk, dv: dk/dv sum thousands of
     queries in another order than the plain version, and P and dS are
     rounded to bf16 as product operands. Two calls on the same inputs must
-    be bitwise equal. Timed at the level-0 and level-1 bank-concat shapes
-    and the level-0 audio self-attention; the library time is SDPA's
-    forward + backward less its forward."""
+    be bitwise equal. Every shape timed (the level-0, -1, -2 and mid
+    bank-concat shapes, the level-0 audio self-attention, the image step's
+    and the tp = 2 shard's); the library time is SDPA's forward + backward
+    less its forward."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
@@ -682,8 +684,8 @@ def check_k5(torch, A):
     for name, b, sq, skv, h, d, lens, timed in [  # (name, batch, q seq, kv seq, heads, d, kv_lens)
         ("L0 bank concat", 2, 4096, 8192, 8, 40, [4096, 8192], True),
         ("L1 bank concat", 2, 1024, 2048, 8, 80, [1024, 2048], True),
-        ("L2 bank concat", 2, 256, 512, 8, 160, [256, 512], False),
-        ("mid bank concat", 2, 64, 128, 8, 160, [64, 128], False),
+        ("L2 bank concat", 2, 256, 512, 8, 160, [256, 512], True),
+        ("mid bank concat", 2, 64, 128, 8, 160, [64, 128], True),
         ("L0 audio self-attention", 2, 4096, 4096, 8, 40, None, True),
         ("train_image L0 concat", 4, 1024, 2048, 8, 40, [1024, 2048, 2048, 2048], True),
         ("train_image ReferenceNet self-attention", 4, 1024, 1024, 8, 40, None, True),

@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks shared by K1 (flash_attn.cu), K3
-// (ln_proj.cu) and K4 (motion_attn.cu): mbarriers, TMA tile loads, wgmma
-// with shared-memory descriptors, and the host-side tensor-map encoder.
-// The kernels that include it replace the TPU kernels named in their own
-// notes (mmgt_tpu/ops/attention.py, fused_ln.py:_ln_proj_fwd,
-// motion_attention.py:_motion_fwd); this header computes nothing itself.
+// (ln_proj.cu), K4 (motion_attn.cu) and K5 (flash_attn_bwd.cu): mbarriers,
+// TMA tile loads, wgmma with shared-memory descriptors, and the host-side
+// tensor-map encoder. The kernels that include it replace the TPU kernels
+// named in their own notes (mmgt_tpu/ops/attention.py,
+// fused_ln.py:_ln_proj_fwd, motion_attention.py:_motion_fwd); this header
+// computes nothing itself.
 //
-// Layout rule used by all three: a K-major operand tile is stored as column
+// Layout rule used by all four: a K-major operand tile is stored as column
 // boxes one swizzle span wide (64 bf16 = 128 bytes with the 128-byte
 // swizzle), rows of one span each, 1024-byte aligned. TMA writes it so, the
 // wgmma descriptor reads it with a stride of 8 rows x span, and a 16-deep
@@ -62,6 +63,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// `bytes` contiguous bytes global -> shared (a multiple of 16; both
+// addresses 16-byte aligned), counted on the barrier's transactions
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,

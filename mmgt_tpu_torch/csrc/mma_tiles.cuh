@@ -1,7 +1,9 @@
-// Warp-level building blocks shared by flash_attn.cu (its d = 512 variant)
-// and flash_attn_bwd.cu: cp.async copies (16 and 4 bytes) with zero fill,
-// ldmatrix fragment loads, mma.sync m16n8k16 (bf16 in, f32 accumulate) and
-// bf16 packing.
+// Warp-level building blocks of flash_attn.cu's d = 512 variant: 16-byte
+// cp.async copies with zero fill (also group_norm.cu's), ldmatrix fragment
+// loads, mma.sync m16n8k16 (bf16 in, f32 accumulate) and bf16 packing. The
+// accumulator-to-A-fragment packing (acc_to_a) is also the register A
+// operand of wgmma (flash_attn.cu's d <= 160 path, flash_attn_bwd.cu),
+// whose per-warp layout is this one.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4 g + q.
 //   A (16 x 16, row-major): a0 = (g, 2q..2q+1), a1 = (g+8, 2q..), a2 = (g, 8+2q..),
@@ -25,12 +27,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 16 : 0)
-               : "memory");
-}
-// 4-byte global -> shared copy; `valid` false writes 4 zero bytes.
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

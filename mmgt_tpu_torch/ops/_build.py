@@ -8,8 +8,8 @@ with
 
 into `mmgt_tpu_torch/_build/` (listed in .gitignore). The file name carries
 a hash of the source and of the shared headers (`csrc/*.cuh`), so an edited
-source never loads a stale library. No source links libcuda: K1, K3 and K4
-look `cuTensorMapEncodeTiled` up through the CUDA runtime
+source never loads a stale library. No source links libcuda: K1, K3, K4 and
+K5 look `cuTensorMapEncodeTiled` up through the CUDA runtime
 (`cudaGetDriverEntryPoint`, csrc/hopper.cuh).
 Every C entry returns `cudaGetLastError()` after its launch; `check` raises
 on anything but 0. Nothing here falls back to another path.

@@ -173,7 +173,9 @@ def _launch_bwd(q, k, v, o, do, lse, kv_lens, scale):
         lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
         if lens.shape != (b,):
             raise ValueError(f"kv_lens must be ({b},)")
-    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # the kernel's statistics (lse * log2(e) and D), queries padded to a
+    # multiple of 128 (csrc/flash_attn_bwd.cu, `kStatsPad`)
+    stats = torch.empty((b, h, 2, -(-sq // 128) * 128), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, skv, h, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, skv, h, d), dtype=q.dtype, device=q.device)
@@ -181,7 +183,7 @@ def _launch_bwd(q, k, v, o, do, lse, kv_lens, scale):
     lib = _build.load("flash_attn_bwd")
     rc = lib.mmgt_flash_attn_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), _build.ptr(lens), dsum.data_ptr(),
+        lse.data_ptr(), _build.ptr(lens), stats.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *strides,
         b, h, sq, skv, d, float(scale), _build.stream_ptr(q),
     )

@@ -325,17 +325,34 @@ def test_ln_projections_kernel_shard_shapes(gen, m, k, outs, bias):
         _check(gt, want)
 
 
-# ragged Sq / Skv against the 128-query and 128- or 64-key tiles, kv_lens
-# ending inside a tile, and rows with kv_len = 0
-@pytest.mark.parametrize("d,sq,skv,lens", [(40, 300, 557, [557, 123]), (40, 200, 300, [300, 0]),
-                                           (80, 300, 600, [450, 0]), (160, 130, 257, None),
-                                           (160, 200, 400, [333, 0])])
-def test_flash_attention_backward_kernel(gen, d, sq, skv, lens):
+def _qkv(gen, sq, skv, h, d, interleaved):
+    """q, k, v of (2, S, h, d); interleaved: views into one projection
+    output a row, as K3's fused q/k/v (row stride 3 h d, or 2 h d for K/V)."""
+    if not interleaved:
+        return _bf(gen, 2, sq, h, d), _bf(gen, 2, skv, h, d), _bf(gen, 2, skv, h, d)
+    qbuf, kvbuf = _bf(gen, 2, sq, 3, h, d), _bf(gen, 2, skv, 2, h, d)
+    return qbuf[:, :, 0], kvbuf[:, :, 0], kvbuf[:, :, 1]
+
+
+# ragged Sq / Skv against the 128-query and 128-key blocks, the 128- or
+# 64-key tiles of the dq pass, the 64- or 32-query tiles of the dk/dv pass
+# and the 64 keys of each consumer warpgroup; kv_lens ending inside a tile
+# (97: in the second warpgroup's keys; 45: the first's, the second's all
+# masked; 33 at d = 160), rows with kv_len = 0 (d = 40, 80, 160), strided
+# views of a fused q/k/v projection, and the tp = 2 head count (4 of 8)
+@pytest.mark.parametrize("d,sq,skv,h,lens,interleaved", [
+    (40, 300, 557, 2, [557, 123], False), (40, 200, 300, 2, [300, 0], False),
+    (80, 300, 600, 2, [450, 0], False), (160, 130, 257, 2, None, False),
+    (160, 200, 400, 2, [333, 0], False),
+    (40, 190, 333, 2, [333, 97], False), (40, 77, 190, 2, [45, 150], False),
+    (80, 77, 131, 2, [0, 100], False), (160, 100, 197, 2, [150, 33], False),
+    (40, 300, 557, 2, [500, 129], True), (80, 130, 260, 2, [200, 260], True),
+    (160, 70, 140, 2, None, True), (40, 1024, 2048, 4, [1024, 2048], False)])
+def test_flash_attention_backward_kernel(gen, d, sq, skv, h, lens, interleaved):
     """K5 against attention_bwd_plain; a 0 in lens is a row with no valid
     key (lse ~ -1e30), whose gradients must be exactly zero."""
-    h = 2
-    q, k, v, do = _bf(gen, 2, sq, h, d), _bf(gen, 2, skv, h, d), _bf(gen, 2, skv, h, d), \
-        _bf(gen, 2, sq, h, d)
+    q, k, v = _qkv(gen, sq, skv, h, d, interleaved)
+    do = _bf(gen, 2, sq, h, d)
     kl = None if lens is None else torch.tensor(lens, device="cuda", dtype=torch.int32)
     o, lse = A.flash_attention(q, k, v, kl, return_lse=True)
     before = A.BWD_LAUNCHES
@@ -350,7 +367,7 @@ def test_flash_attention_backward_kernel(gen, d, sq, skv, lens):
         assert all(g[row].abs().max().item() == 0 for g in got)
 
 
-@pytest.mark.parametrize("d", [40, 160])
+@pytest.mark.parametrize("d", [40, 80, 160])
 def test_flash_attention_backward_kernel_deterministic(gen, d):
     """Two K5 calls on the same inputs are bitwise equal (no atomics, a
     fixed summation order)."""
