@@ -425,6 +425,12 @@ def check_k1(torch, A):
         ("L2 bank", 2, 256, 256, 8, 160, True, [256, 512], True, "L2 bank (d = 160)"),
         ("L3 bank", 2, 64, 64, 8, 160, True, [64, 128], False, None),
         ("VAE mid d=512", 1, 4096, 4096, 1, 512, False, None, False, "_flash_attention"),
+        # the VAE's mid attention on the main path's decode (one 8-frame
+        # chunk a launch) and the video train step's 12-frame encode
+        ("VAE decode chunk d=512", 8, 4096, 4096, 1, 512, False, None, False,
+         "VAE decode chunk (8, 4096, 1, 512)"),
+        ("VAE train encode d=512", 12, 4096, 4096, 1, 512, False, None, False,
+         "VAE train encode (12, 4096, 1, 512)"),
         # pose2img: raw banks concatenated at f = 1, the CFG-uncond row gated off
         ("pose2img concat bank, no lse", 2, 4096, 8192, 8, 40, False, [4096, 8192], False,
          "pose2img L0 concat, no lse"),
@@ -456,6 +462,11 @@ def check_k1(torch, A):
         err, tol = max_err(got, want), ulp_tol(want)
         log(f"K1 {name}: max_abs_err {err:.3e} (tol {tol:.3e}, 2 bf16 ulps)")
         require(math.isfinite(err) and err <= tol, f"K1 {name}: err {err} > {tol}")
+        if d == 512 and not lse:  # the d = 512 path's LSE (and its key split's combine)
+            _, got_lse = A.flash_attention(q, k, v, kl, kb, vb, return_lse=True)
+            _, want_lse = A.attention_plain(q, k, v, kl, kb, vb, return_lse=True)
+            e_lse = max_err(got_lse, want_lse)
+            require(e_lse <= tol_lse, f"K1 {name}: lse err {e_lse} > {tol_lse}")
         if timed is None:
             continue
         kc = k if kb is None else torch.cat([k, kb.expand(b, -1, -1, -1)], 1)
@@ -472,6 +483,18 @@ def check_k1(torch, A):
             nbytes(q, k, v, kb, vb, got, got_lse if lse else None),
             f"{name}: q {tuple(q.shape)}, K/V {tuple(kc.shape)}")
         row["max_abs_err"] = err
+        if d == 512:  # the key split's worth: the same call in one split
+            splits = A.wide_splits(b, h, s, skv, torch.cuda.get_device_properties(0)
+                                   .multi_processor_count)
+            keep, A.wide_splits = A.wide_splits, lambda *a: 1
+            try:
+                row["ms_one_split"] = time_ms(
+                    lambda: A.flash_attention(q, k, v, kl, kb, vb, return_lse=lse))
+            finally:
+                A.wide_splits = keep
+            row["key_splits"] = splits
+            log(f"K1 {name}: {splits} key split(s) {row['ms']:.4f} ms, one split "
+                f"{row['ms_one_split']:.4f} ms")
         rows[timed] = row
         if rec is None:  # the hottest shape: the denoiser's level-0 bank attention
             rec = dict(row, rows=rows)
@@ -884,7 +907,10 @@ def run_profile(torch, Pose2VideoPipeline):
     t0 = time.perf_counter()
     decode()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    report_profile(decode, "the VAE decode chunk: 8 frames, 64^2 latents -> 512x512", wall_ms)
+    fams = report_profile(decode, "the VAE decode chunk: 8 frames, 64^2 latents -> 512x512",
+                          wall_ms)
+    log(f"profile: K1 (d = 512, the mid attention) in the VAE decode chunk: "
+        f"{fams.get('K1 flash_fwd', 0.0):.3f} device ms of {wall_ms:.1f} ms")
     report_k2_calls(torch, decode)
     del pipe, lat, lat8
     torch.cuda.empty_cache()
@@ -900,7 +926,9 @@ def report_profile(fn, what: str, wall_ms: float):
         with profiling.trace(d) as path:
             fn()
         rows = device_trace.device_op_table(path)
-    log(json.dumps({"profile": {"what": what, **device_trace.report(rows, wall_ms)}}))
+    rep = device_trace.report(rows, wall_ms)
+    log(json.dumps({"profile": {"what": what, **rep}}))
+    return rep["families_ms"]
 
 
 def small_run(torch, pipe, dev):

@@ -48,17 +48,54 @@
 //     thread), 64 at d = 160 (O alone is 80). Shared memory: Q, then 3
 //     stages of K and V: 86 KB (d 48), 168 KB (96), 160 KB (160).
 //
-// d = 512 (the VAE mid attention, 3 launches a generation): a 64-row f32
-// accumulator at d = 512 is 128 KB, more than one warpgroup's registers.
-// One block per 64-query tile runs 8 warps: warp (r, c) owns query rows
-// 16 r .. 16 r + 15 and output columns 256 c .. 256 c + 255 (128 f32
-// registers a thread). Each warp computes S for its rows and half of the
-// 64 keys (mma.sync m16n8k16 with ldmatrix from XOR-swizzled shared
-// memory); the two warps of a row group exchange their row maxima through
-// shared memory, write P (bf16) to one shared 64 x 64 tile, and both read
-// all of it for O += P V. K and V have one buffer each, filled by cp.async
-// so that V_j loads during S_j and K_{j+1} during the softmax and P V_j.
-// Shared memory: Q, K, V (64 KB each), P (8 KB).
+// d = 512 (the VAE's single-head mid attention: 10 launches at (8, 4096, 1,
+// 512) in a flagship clip's decode, one at (1, 4096, 1, 512) for the
+// reference encode, (12, 4096, 1, 512) in a video train step). Replaces
+// _flash_kernel reached by _flash_attention (mmgt_tpu/ops/attention.py:107,
+// pallas_call :132). Bound: operations, 4 * H * d * Sq * sum(kv_len): 34.4
+// GFLOP at (1, 4096, 1, 512), 0.035 ms at the tensor-core peak (bytes: 16.8
+// MB, 0.005 ms). What the design does about it: both products run on
+// wgmma from tiles TMA brings into shared memory; the f32 O never leaves
+// registers. One block per (64-query tile, head, row, key split), 3
+// warpgroups:
+//   * Warpgroup 2 produces (setmaxnreg 24): one thread loads the Q tile
+//     once (64 KB, eight 64-column boxes under the 128-byte swizzle, 4-D
+//     maps over (D, S, H, B) with the caller's strides), then walks the
+//     self tiles and the bank tiles below kv_len, 64 keys each, into one K
+//     and one V slot (64 KB each) guarded by full/empty mbarriers: K_{j+1}
+//     lands while the consumers run the softmax and P V_j, V_{j+1} during
+//     S_{j+1}. TMA's zero fill pads rows past S and columns past D.
+//   * The register wall: a 64 x 512 f32 O is 256 registers a thread in one
+//     warpgroup, so warpgroups 0 and 1 (setmaxnreg 240) share the 64
+//     queries and each owns 256 of O's columns (128 registers). S is split
+//     by keys: warpgroup w computes S for keys 32 w .. 32 w + 31 of the
+//     tile over all of d (wgmma m64n32k16 x 32, Q and K K-major from
+//     shared memory); the two exchange their row maxima through shared
+//     memory (named barrier 1), take exp2 with scale * log2(e) folded in
+//     and write their halves of P (bf16) into one 128-byte-swizzled 64 x 64
+//     tile (fence.proxy.async, named barrier 2). Then O_w += P V[:, 256 w
+//     ..] by wgmma m64n256k16 x 4 with P and V (MN-major) from shared
+//     memory. The row sums are exchanged once, at the end.
+//     The other split, each warpgroup a partial S over half of d (m64n64,
+//     16 k-steps) with the two 16 KB f32 partials added through shared
+//     memory and P fed from registers, was timed against this one on a
+//     throwaway copy and was slower at the three shapes above: its f32
+//     exchange costs more shared-memory traffic than this split's second
+//     read of Q.
+//   * Filling the card: at (1, 4096, 1, 512) one block per query tile is 64
+//     blocks for 132 SMs. The wrapper (ops/attention.py:wide_splits) then
+//     splits each row's key tiles into n ranges (n = SMs // blocks, at most
+//     4), each block writes its O / l and LSE in f32 to scratch the wrapper
+//     allocates (n * B * H * Sq * (D + 1) floats: 16.8 MB at n = 2), and
+//     flash_fwd_combine weighs the n partials by exp(lse_s - max) in a
+//     fixed order, so two calls give the same bits.
+//   * What it costs over the bound: the two warpgroups run in lockstep (S,
+//     the exchanges, the softmax and the rescale of O, then P V), so the
+//     tensor cores idle during the softmax; each warpgroup reads all of Q
+//     from shared memory for every key tile. A throwaway variant that loads
+//     no K or V after the first tile ran no faster: the loads are hidden.
+//   * Shared memory: Q, K, V (64 KB each), P (8 KB), the row maxima and
+//     sums (1 KB), 5 mbarriers: 206,912 bytes with the alignment pad.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -278,7 +315,7 @@ __global__ void __launch_bounds__(384, 1) flash_fwd_tma(const __grid_constant__ 
   }
 }
 
-// ------------------------------------------------- d = 512: cp.async + mma
+// ------------------------------------------------ d = 512: TMA + wgmma
 struct PtrParams {
   const bf16* q; const bf16* k; const bf16* v; const bf16* kb; const bf16* vb;
   const int* kv_lens; bf16* o; float* lse;
@@ -288,191 +325,288 @@ struct PtrParams {
   float scale_log2;
 };
 
-constexpr int kWideD = 512;
-constexpr int kWideTileBytes = 64 * kWideD * 2;  // one 64-row Q, K or V tile
-constexpr int kWideSmem = 3 * kWideTileBytes + 64 * 64 * 2 + 2 * 2 * 64 * 4 + 128;
+struct WideParams {
+  CUtensorMap tq, tk, tv, tkb, tvb;  // (D, S, H, B) maps, boxes of 64 columns x 64 rows
+  const int* kv_lens;
+  bf16* o;
+  float* lse;
+  // nsplit > 1: the splits' outputs (nsplit, B, H, Sq, D) and LSEs
+  // (nsplit, B, H, Sq), f32, for flash_fwd_combine
+  float* part;
+  long long o_sb, o_ss, o_sh;
+  int H, Sq, Ls, Lb, D, nsplit;
+  float scale_log2;
+};
 
-// byte offset of (row, col) in a tile of `chunks` 16-byte chunks a row,
-// chunk index XOR-swizzled with row & 7 (conflict-free ldmatrix)
-template <int CHUNKS>
-__device__ __forceinline__ uint32_t swz(int row, int col) {
-  return (uint32_t)((row * CHUNKS + ((col >> 3) ^ (row & 7))) * 16 + (col & 7) * 2);
-}
+constexpr int kWideBox = 64 * 128;       // 64 rows of one 64-column box (128-byte swizzle)
+constexpr int kWideTile = 8 * kWideBox;  // a 64-row Q, K or V tile at d = 512: 64 KB
+constexpr int kWideX = 64 * 64 * 2 + 4 * 64 * 4;  // P (bf16), the row maxima and sums
+constexpr int kWideCols = 4;  // groups of 8 keys in a warpgroup's S (32 of the tile's 64)
+constexpr int kWideSmem = 3 * kWideTile + kWideX + 64 + 1024;  // + mbarriers, alignment pad
+constexpr int kMaxSplits = 4;  // key splits (ops/attention.py, MAX_SPLITS)
 
-// 64 rows x 512 columns of a (rows, D) slice with row stride ss into a
-// swizzled tile; rows >= nvalid and columns >= D are zero-filled
-__device__ __forceinline__ void load_wide(uint32_t dst, const bf16* src, long long ss, int nvalid,
-                                          int D, int tid) {
-#pragma unroll
-  for (int i = 0; i < 64 * 64 / 256; ++i) {
-    const int idx = tid + 256 * i, row = idx >> 6, col = (idx & 63) * 8;
-    const bool ok = row < nvalid && col < D;
-    cp_async16(dst + swz<64>(row, col), ok ? src + row * ss + col : src, ok);
-  }
-}
-
-__global__ void __launch_bounds__(256, 1) flash_fwd_wide(const PtrParams p) {
+__global__ void __launch_bounds__(384, 1) flash_fwd_wide(const __grid_constant__ WideParams p) {
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 127u) & ~127u;
-  const uint32_t sQ = base, sK = sQ + kWideTileBytes, sV = sK + kWideTileBytes;
-  const uint32_t sP = sV + kWideTileBytes;
-  float* red = reinterpret_cast<float*>(smem_raw + (sP + 64 * 64 * 2 - smem_u32(smem_raw)));
-  float* red_max = red;        // [2][64]: each half's row maxima
-  float* red_sum = red + 128;  // [2][64]: each half's row sums
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte aligned bases
+  const uint32_t sQ = base, sK = sQ + kWideTile, sV = sK + kWideTile, sX = sV + kWideTile;
+  const uint32_t qbar = sX + kWideX, kfull = qbar + 8, kempty = qbar + 16, vfull = qbar + 24,
+                 vempty = qbar + 32;
+  float* xf = reinterpret_cast<float*>(smem_raw + (sX - raw));
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rg = warp & 3, hf = warp >> 2;  // row group (16 rows), column half
-  const int g = lane >> 2, qd = lane & 3;
-  const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x % p.nsplit, q0 = blockIdx.x / p.nsplit * 64;
+  const int h = blockIdx.y, b = blockIdx.z;
   const Segments seg = segments(p.kv_lens, b, p.Ls, p.Lb);
   const int tiles0 = (seg.n0 + 63) / 64;
   const int ntiles = tiles0 + (seg.n1 + 63) / 64;
-  const float sl2 = p.scale_log2;
+  const int t_beg = ntiles * split / p.nsplit, t_end = ntiles * (split + 1) / p.nsplit;
 
-  // tile t: keys [row, row + 64) of the self segment, then of the bank
-  auto tile_row = [&](int t) { return (t >= tiles0 ? t - tiles0 : t) * 64; };
-  auto tile_keys = [&](int t) { return min(64, (t >= tiles0 ? seg.n1 : seg.n0) - tile_row(t)); };
-  auto load_kv = [&](uint32_t dst, int t, bool value) {
-    const bool bank = t >= tiles0;
-    const long long ss = bank ? (value ? p.vb_ss : p.kb_ss) : (value ? p.v_ss : p.k_ss);
-    const bf16* base = bank ? (value ? p.vb + h * p.vb_sh : p.kb + h * p.kb_sh)
-                            : (value ? p.v + b * p.v_sb + h * p.v_sh : p.k + b * p.k_sb + h * p.k_sh);
-    load_wide(dst, base + tile_row(t) * ss, ss, tile_keys(t), p.D, tid);
-  };
-
-  load_wide(sQ, p.q + b * p.q_sb + (long long)q0 * p.q_ss + h * p.q_sh, p.q_ss,
-            min(64, p.Sq - q0), p.D, tid);
-  cp_async_commit();
-  if (ntiles > 0) {
-    load_kv(sK, 0, false);
-    cp_async_commit();
-    load_kv(sV, 0, true);
-    cp_async_commit();
-  }
-
-  float o[128];
-#pragma unroll
-  for (int i = 0; i < 128; ++i) o[i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const int rowl = 16 * rg + g;  // this thread's rows in the tile: rowl, rowl + 8
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int nk = tile_keys(t);
-    cp_async_wait<1>();  // Q and K_t have landed (V_t may still be in flight)
-    __syncthreads();
-
-    // S: rows 16 rg.., keys 32 hf .. 32 hf + 31
-    float s[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) s[i] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < kWideD / 16; ++kk) {
-      uint32_t a[4], bq[4];
-      ldsm_x4(a, sQ + swz<64>(16 * rg + a_row(lane), 16 * kk + a_col(lane)));
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        ldsm_x4(bq, sK + swz<64>(32 * hf + 16 * np + bn_row(lane), 16 * kk + bn_col(lane)));
-        mma16816(s + 8 * np, a, bq[0], bq[1]);
-        mma16816(s + 8 * np + 4, a, bq[2], bq[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with K_t
-    if (t + 1 < ntiles) load_kv(sK, t + 1, false);
-    cp_async_commit();
-
-    // mask, then the row maxima over both halves
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (32 * hf + 8 * nt + 2 * qd + (e & 1) >= nk) s[4 * nt + e] = -INFINITY;
-    float mx[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      mx[j] = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mx[j] = fmaxf(mx[j], fmaxf(s[4 * nt + 2 * j], s[4 * nt + 2 * j + 1]));
-      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
-      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
-      if (qd == 0) red_max[hf * 64 + rowl + 8 * j] = mx[j];
-    }
-    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + rg) : "memory");  // the row group's two warps
-    float alpha[2], mnew[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const float other = red_max[(1 - hf) * 64 + rowl + 8 * j];
-      mnew[j] = fmaxf(m[j], fmaxf(mx[j], other) * sl2);
-      alpha[j] = exp2f(m[j] - mnew[j]);
-      m[j] = mnew[j];
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[4 * nt + e] = exp2f(fmaf(s[4 * nt + e], sl2, -mnew[e >> 1]));
-        rs[e >> 1] += s[4 * nt + e];
-      }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) l[j] = l[j] * alpha[j] + rs[j];
-#pragma unroll
-    for (int i = 0; i < 128; ++i) o[i] *= alpha[(i >> 1) & 1];
-    // P (bf16) into the shared 64 x 64 tile
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = 32 * hf + 8 * nt + 2 * qd;
-        const uint32_t v = pack_bf16(s[4 * nt + 2 * j], s[4 * nt + 2 * j + 1]);
-        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sP + swz<8>(rowl + 8 * j, col)), "r"(v)
-                     : "memory");
-      }
-    cp_async_wait<1>();  // V_t has landed (K_{t+1} may still be in flight)
-    __syncthreads();
-
-    // O[16 rows][256 columns of half hf] += P[16 rows][64 keys] . V
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4], bv[4];
-      ldsm_x4(a, sP + swz<8>(16 * rg + a_row(lane), 16 * kk + a_col(lane)));
-#pragma unroll
-      for (int np = 0; np < 16; ++np) {
-        ldsm_x4_t(bv, sV + swz<64>(16 * kk + bt_row(lane), 256 * hf + 16 * np + bt_col(lane)));
-        mma16816(o + 8 * np, a, bv[0], bv[1]);
-        mma16816(o + 8 * np + 4, a, bv[2], bv[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with V_t and P
-    if (t + 1 < ntiles) load_kv(sV, t + 1, true);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-
-  // l over both halves, then O / l
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
-    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
-    if (qd == 0) red_sum[hf * 64 + rowl + 8 * j] = l[j];
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    mbar_init(kfull, 1);
+    mbar_init(vfull, 1);
+    mbar_init(kempty, 8);  // one arrival per consumer warp
+    mbar_init(vempty, 8);
+    mbar_fence_init();
   }
   __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qbar, kWideTile);
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int r = q0 + rowl + 8 * j;
-    if (r >= p.Sq) continue;
-    const float lt = red_sum[rowl + 8 * j] + red_sum[64 + rowl + 8 * j];
-    const float inv = 1.f / fmaxf(lt, 1e-30f);
-    bf16* orow = p.o + b * p.o_sb + (long long)r * p.o_ss + h * p.o_sh;
+      for (int j = 0; j < 8; ++j) tma_load(sQ + j * kWideBox, &p.tq, qbar, 64 * j, q0, h, b);
+      for (int t = t_beg; t < t_end; ++t) {
+        const int it = t - t_beg;
+        const bool bank = t >= tiles0;
+        const int row = (bank ? t - tiles0 : t) * 64;
+        const CUtensorMap* mk = bank ? &p.tkb : &p.tk;
+        const CUtensorMap* mv = bank ? &p.tvb : &p.tv;
+        const int bb = bank ? 0 : b;
+        mbar_wait(kempty, (it & 1) ^ 1);
+        mbar_expect_tx(kfull, kWideTile);
 #pragma unroll
-    for (int nt = 0; nt < 32; ++nt) {
-      const int col = 256 * hf + 8 * nt + 2 * qd;
-      if (col < p.D)
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-            __floats2bfloat162_rn(o[4 * nt + 2 * j] * inv, o[4 * nt + 2 * j + 1] * inv);
+        for (int j = 0; j < 8; ++j) tma_load(sK + j * kWideBox, mk, kfull, 64 * j, row, h, bb);
+        mbar_wait(vempty, (it & 1) ^ 1);
+        mbar_expect_tx(vfull, kWideTile);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) tma_load(sV + j * kWideBox, mv, vfull, 64 * j, row, h, bb);
+      }
     }
-    if (p.lse && hf == 0 && qd == 0)
-      p.lse[((long long)b * p.H + h) * p.Sq + r] = lt > 0.f ? m[j] * kLn2 + logf(lt) : kEmptyLse;
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, lane = tid % 32;
+    const int qd = lane & 3;
+    const int rl = 16 * (tid / 32) + (lane >> 2);  // this thread's rows of the tile: rl, rl + 8
+    float o[128];  // O[:, 256 wg .. 256 wg + 255]
+#pragma unroll
+    for (int i = 0; i < 128; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    const float sl2 = p.scale_log2;
+    const int col0 = 32 * wg;
+    float* red = xf + 64 * 64 / 2;  // [2][64] row maxima, then [2][64] row sums
+
+    mbar_wait(qbar, 0);
+    for (int t = t_beg; t < t_end; ++t) {
+      const int it = t - t_beg;
+      const bool bank = t >= tiles0;
+      const int nk = bank ? min(64, seg.n1 - (t - tiles0) * 64) : min(64, seg.n0 - t * 64);
+      float s[4 * kWideCols];
+      mbar_wait(kfull, it & 1);
+      wgmma_fence();
+      // S = Q K^T for this warpgroup's 32 keys (rows 32 wg .. of the K tile)
+#pragma unroll
+      for (int kk = 0; kk < 32; ++kk) {
+        const uint32_t off = (kk / 4) * kWideBox + (kk % 4) * 32;
+        wgmma_ss<32>(s, make_desc<128>(sQ + off, 16),
+                     make_desc<128>(sK + off + 32 * 128 * wg, 16), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<4 * kWideCols>(s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kempty);
+      // mask the partial tile: register 4c + 2j + e is (row rl + 8 j, key col0 + 8c + 2q + e)
+      if (nk < 64) {
+#pragma unroll
+        for (int c = 0; c < kWideCols; ++c) {
+          const int col = col0 + 8 * c + 2 * qd;
+          if (col >= nk) { s[4 * c] = -INFINITY; s[4 * c + 2] = -INFINITY; }
+          if (col + 1 >= nk) { s[4 * c + 1] = -INFINITY; s[4 * c + 3] = -INFINITY; }
+        }
+      }
+      float mx[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        mx[j] = -INFINITY;
+#pragma unroll
+        for (int c = 0; c < kWideCols; ++c)
+          mx[j] = fmaxf(mx[j], fmaxf(s[4 * c + 2 * j], s[4 * c + 2 * j + 1]));
+        mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+        mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+      }
+      if (qd == 0) {
+        red[64 * wg + rl] = mx[0];
+        red[64 * wg + rl + 8] = mx[1];
+      }
+      named_sync(1, 256);
+      mx[0] = fmaxf(mx[0], red[64 * (1 - wg) + rl]);
+      mx[1] = fmaxf(mx[1], red[64 * (1 - wg) + rl + 8]);
+      // online softmax in registers (log2 domain)
+      float alpha[2], mnew[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        mnew[j] = fmaxf(m[j], mx[j] * sl2);
+        alpha[j] = exp2f(m[j] - mnew[j]);
+        m[j] = mnew[j];
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < kWideCols; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[4 * c + e] = exp2f(fmaf(s[4 * c + e], sl2, -mnew[e >> 1]));
+          rs[e >> 1] += s[4 * c + e];
+        }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) l[j] = l[j] * alpha[j] + rs[j];
+#pragma unroll
+      for (int i = 0; i < 128; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+      // O[:, this warpgroup's 256 columns] += P V, V the MN-major B operand
+      const uint32_t v_base = sV + 4 * wg * kWideBox;
+      // P (bf16) into the shared 64 x 64 tile, swizzled as TMA would write it
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int row = rl + 8 * j, col = col0 + 8 * c + 2 * qd;
+          const uint32_t addr = sX + row * 128 + (((col >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
+                       "r"(pack_bf16(s[4 * c + 2 * j], s[4 * c + 2 * j + 1]))
+                       : "memory");
+        }
+      fence_proxy_async();
+      named_sync(2, 256);  // P is whole
+      mbar_wait(vfull, it & 1);
+      wgmma_fence();
+      fence_regs<128>(o);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n256_t(o, make_desc<128>(sX + kk * 32, 16),
+                        make_desc<128>(v_base + kk * 16 * 128, kWideBox));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<128>(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(vempty);
+    }
+
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
+      l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
+    }
+    if (qd == 0) {
+      red[128 + 64 * wg + rl] = l[0];
+      red[128 + 64 * wg + rl + 8] = l[1];
+    }
+    named_sync(1, 256);
+    l[0] = red[128 + rl] + red[192 + rl];
+    l[1] = red[128 + rl + 8] + red[192 + rl + 8];
+    // O / l straight from registers; rows past Sq are not stored
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = q0 + rl + 8 * j;
+      if (r >= p.Sq) continue;
+      const float inv = 1.f / fmaxf(l[j], 1e-30f);
+      if (p.nsplit == 1) {
+        bf16* orow = p.o + b * p.o_sb + (long long)r * p.o_ss + h * p.o_sh;
+#pragma unroll
+        for (int c = 0; c < 32; ++c) {
+          const int col = 256 * wg + 8 * c + 2 * qd;
+          if (col < p.D)
+            *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                __floats2bfloat162_rn(o[4 * c + 2 * j] * inv, o[4 * c + 2 * j + 1] * inv);
+        }
+        if (p.lse && wg == 0 && qd == 0)
+          p.lse[((long long)b * p.H + h) * p.Sq + r] =
+              l[j] > 0.f ? m[j] * kLn2 + logf(l[j]) : kEmptyLse;
+      } else {  // this split's O / l and LSE (-inf: no key in the split)
+        const long long row = (((long long)split * gridDim.z + b) * p.H + h) * p.Sq + r;
+        float* prow = p.part + row * p.D;
+#pragma unroll
+        for (int c = 0; c < 32; ++c) {
+          const int col = 256 * wg + 8 * c + 2 * qd;
+          if (col < p.D)
+            *reinterpret_cast<float2*>(prow + col) =
+                make_float2(o[4 * c + 2 * j] * inv, o[4 * c + 2 * j + 1] * inv);
+        }
+        if (wg == 0 && qd == 0)
+          p.part[(long long)p.nsplit * gridDim.z * p.H * p.Sq * p.D + row] =
+              l[j] > 0.f ? m[j] * kLn2 + logf(l[j]) : -INFINITY;
+      }
+    }
   }
+}
+
+struct CombineParams {
+  const float* part;
+  bf16* o;
+  float* lse;
+  long long o_sb, o_ss, o_sh;
+  int B, H, Sq, D, nsplit;
+};
+
+// O = sum_s w_s O_s / sum_s w_s with w_s = exp(lse_s - max lse), the
+// splits taken in order (two calls give the same bits); 64 threads a
+// (b, h, query) row, 8 columns a thread
+__global__ void __launch_bounds__(256) flash_fwd_combine(const CombineParams p) {
+  const long long rows = (long long)p.B * p.H * p.Sq;
+  const long long row = (long long)blockIdx.x * 4 + threadIdx.x / 64;
+  if (row >= rows) return;
+  const int i = (int)(row % p.Sq), h = (int)(row / p.Sq % p.H), b = (int)(row / p.Sq / p.H);
+  const float* plse = p.part + (long long)p.nsplit * rows * p.D;
+  float w[kMaxSplits], mx = -INFINITY;
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s) {
+    w[s] = s < p.nsplit ? plse[s * rows + row] : -INFINITY;
+    mx = fmaxf(mx, w[s]);
+  }
+  float tot = 0.f;
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s) {
+    w[s] = mx > -INFINITY && w[s] > -INFINITY ? expf(w[s] - mx) : 0.f;
+    tot += w[s];
+  }
+  const float inv = tot > 0.f ? 1.f / tot : 0.f;
+  bf16* orow = p.o + b * p.o_sb + (long long)i * p.o_ss + h * p.o_sh;
+  for (int c = 8 * (threadIdx.x % 64); c < p.D; c += 512) {
+    float acc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s) {
+      if (s >= p.nsplit) break;
+      const float4* src = reinterpret_cast<const float4*>(p.part + (s * rows + row) * p.D + c);
+      const float4 x = src[0], y = src[1];
+      const float ws = w[s] * inv;
+      acc[0] = fmaf(ws, x.x, acc[0]); acc[1] = fmaf(ws, x.y, acc[1]);
+      acc[2] = fmaf(ws, x.z, acc[2]); acc[3] = fmaf(ws, x.w, acc[3]);
+      acc[4] = fmaf(ws, y.x, acc[4]); acc[5] = fmaf(ws, y.y, acc[5]);
+      acc[6] = fmaf(ws, y.z, acc[6]); acc[7] = fmaf(ws, y.w, acc[7]);
+    }
+    uint4 out;
+    out.x = pack_bf16(acc[0], acc[1]);
+    out.y = pack_bf16(acc[2], acc[3]);
+    out.z = pack_bf16(acc[4], acc[5]);
+    out.w = pack_bf16(acc[6], acc[7]);
+    *reinterpret_cast<uint4*>(orow + c) = out;
+  }
+  if (p.lse && threadIdx.x % 64 == 0) p.lse[row] = tot > 0.f ? mx + logf(tot) : kEmptyLse;
 }
 
 // ------------------------------------------------------------------- host
@@ -503,12 +637,36 @@ int launch_tma(const PtrParams& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-int launch_wide(const PtrParams& p, int B, cudaStream_t stream) {
+int launch_wide(const PtrParams& a, int B, float* part, int nsplit, cudaStream_t stream) {
+  if (nsplit < 1 || nsplit > kMaxSplits || (nsplit > 1 && !part))
+    return (int)cudaErrorInvalidValue;
+  WideParams p;
+  bool ok = make_map(&p.tq, a.q, a.D, a.Sq, a.H, B, a.q_ss, a.q_sh, a.q_sb, 64, 128) &&
+            make_map(&p.tk, a.k, a.D, a.Ls, a.H, B, a.k_ss, a.k_sh, a.k_sb, 64, 128) &&
+            make_map(&p.tv, a.v, a.D, a.Ls, a.H, B, a.v_ss, a.v_sh, a.v_sb, 64, 128);
+  if (a.Lb > 0) {
+    ok = ok && make_map(&p.tkb, a.kb, a.D, a.Lb, a.H, 1, a.kb_ss, a.kb_sh, 0, 64, 128) &&
+         make_map(&p.tvb, a.vb, a.D, a.Lb, a.H, 1, a.vb_ss, a.vb_sh, 0, 64, 128);
+  } else {  // no bank tile is ever loaded; the self maps stand in
+    p.tkb = p.tk;
+    p.tvb = p.tv;
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
+  p.kv_lens = a.kv_lens; p.o = a.o; p.lse = a.lse; p.part = part;
+  p.o_sb = a.o_sb; p.o_ss = a.o_ss; p.o_sh = a.o_sh;
+  p.H = a.H; p.Sq = a.Sq; p.Ls = a.Ls; p.Lb = a.Lb; p.D = a.D; p.nsplit = nsplit;
+  p.scale_log2 = a.scale_log2;
   static cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, kWideSmem);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((p.Sq + 63) / 64, p.H, B);
-  flash_fwd_wide<<<grid, 256, kWideSmem, stream>>>(p);
+  dim3 grid((a.Sq + 63) / 64 * nsplit, a.H, B);
+  flash_fwd_wide<<<grid, 384, kWideSmem, stream>>>(p);
+  if (nsplit == 1) return (int)cudaGetLastError();
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  CombineParams c{part, a.o, a.lse, a.o_sb, a.o_ss, a.o_sh, B, a.H, a.Sq, a.D, nsplit};
+  const long long rows = (long long)B * a.H * a.Sq;
+  flash_fwd_combine<<<(unsigned)((rows + 3) / 4), 256, 0, stream>>>(c);
   return (int)cudaGetLastError();
 }
 
@@ -520,13 +678,13 @@ extern "C" const char* mmgt_error_string(int e) {
 
 extern "C" int mmgt_flash_attn(
     const void* q, const void* k, const void* v, const void* kb, const void* vb,
-    const void* kv_lens, void* o, void* lse,
+    const void* kv_lens, void* o, void* lse, void* part,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long kb_ss, long long kb_sh, long long vb_ss, long long vb_sh,
     long long o_sb, long long o_ss, long long o_sh,
-    int B, int H, int Sq, int Ls, int Lb, int D, float scale, void* stream) {
+    int B, int H, int Sq, int Ls, int Lb, int D, int nsplit, float scale, void* stream) {
   PtrParams p;
   p.q = (const bf16*)q; p.k = (const bf16*)k; p.v = (const bf16*)v;
   p.kb = (const bf16*)kb; p.vb = (const bf16*)vb;
@@ -547,6 +705,6 @@ extern "C" int mmgt_flash_attn(
   if (D <= 48) return launch_tma<48, 32, 128>(p, B, st);
   if (D <= 96) return launch_tma<96, 64, 128>(p, B, st);
   if (D <= 160) return launch_tma<160, 64, 64>(p, B, st);
-  if (D <= kWideD) return launch_wide(p, B, st);
+  if (D <= 512) return launch_wide(p, B, (float*)part, nsplit, st);
   return (int)cudaErrorInvalidValue;
 }

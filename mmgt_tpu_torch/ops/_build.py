@@ -39,7 +39,7 @@ VP, INT, FLT, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longl
 # would otherwise pass them as 32-bit ints and cut them)
 SIGNATURES = {
     "flash_attn": {
-        "mmgt_flash_attn": [VP] * 8 + [LL] * 16 + [INT] * 6 + [FLT, VP],
+        "mmgt_flash_attn": [VP] * 9 + [LL] * 16 + [INT] * 7 + [FLT, VP],
     },
     "flash_attn_bwd": {
         "mmgt_flash_attn_bwd": [VP] * 11 + [LL] * 24 + [INT] * 5 + [FLT, VP],

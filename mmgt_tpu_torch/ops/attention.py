@@ -104,6 +104,21 @@ def attention_bwd_plain(q, k, v, o, do, lse, kv_lens=None, scale: Optional[float
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+WIDE_TILE = 64  # the query and key tiles of K1's d > 160 path
+MAX_SPLITS = 4  # csrc/flash_attn.cu, `kMaxSplits`
+
+
+def wide_splits(b: int, h: int, sq: int, keys: int, sms: int) -> int:
+    """How many key ranges K1's d > 160 path splits a row's keys into: one
+    block per (64-query tile, head, row) fills fewer than half the SMs at
+    the reference encode's (1, 4096, 1, 512) (64 blocks on 132), so each
+    block takes 1/n of the key tiles and a second grid combines the n
+    partial outputs in a fixed order. n = SMs // blocks, at most 4 and at
+    most the key tiles."""
+    blocks = -(-sq // WIDE_TILE) * h * b
+    return max(1, min(MAX_SPLITS, sms // blocks, -(-keys // WIDE_TILE)))
+
+
 def _launch(q, k, v, kv_lens, k_bank, v_bank, scale, return_lse):
     global LAUNCHES
     b, sq, h, d = q.shape
@@ -132,18 +147,23 @@ def _launch(q, k, v, kv_lens, k_bank, v_bank, scale, return_lse):
             raise ValueError(f"kv_lens must be ({b},)")
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
+    nsplit = 1 if d <= 160 else wide_splits(
+        b, h, sq, ls + lb, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    # the splits' f32 outputs and LSEs (csrc/flash_attn.cu, `WideParams::part`)
+    part = (torch.empty(nsplit * b * h * sq * (d + 1), dtype=torch.float32, device=q.device)
+            if nsplit > 1 else None)
     kb = k_bank if k_bank is not None else k
     vb = v_bank if v_bank is not None else v
     lib = _build.load("flash_attn")
     rc = lib.mmgt_flash_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(k_bank), _build.ptr(v_bank),
-        _build.ptr(lens), o.data_ptr(), _build.ptr(lse),
+        _build.ptr(lens), o.data_ptr(), _build.ptr(lse), _build.ptr(part),
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         kb.stride(1), kb.stride(2), vb.stride(1), vb.stride(2),
         o.stride(0), o.stride(1), o.stride(2),
-        b, h, sq, ls, lb, d, float(scale), _build.stream_ptr(q),
+        b, h, sq, ls, lb, d, nsplit, float(scale), _build.stream_ptr(q),
     )
     _build.check(lib, rc, "flash attention (K1)")
     LAUNCHES += 1

@@ -19,9 +19,10 @@ ways:
       - K1 (`csrc/flash_attn.cu`) pads the head dim to its variant (40 ->
         48, 80 -> 96; 160, 512), runs query tiles of 128 (64 at d = 512)
         and, per row, the self keys and the bank keys below the row's
-        kv_len in tiles of 128 keys (64 at d >= 160). It skips the bank
-        keys of the CFG-uncond rows, which the plain version computes and
-        masks;
+        kv_len in tiles of 128 keys (64 at d >= 160; at d = 512 a call of
+        few blocks splits a row's key tiles over 2-4 blocks, the same
+        tiles). It skips the bank keys of the CFG-uncond rows, which the
+        plain version computes and masks;
       - K3 (`csrc/ln_proj.cu`) runs whole stripes of 128 or 64 rows
         against 160-column weight tiles over 64-column K chunks
         (`ops/fused_ln.py:gemm_plan`);

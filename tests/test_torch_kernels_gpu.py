@@ -43,14 +43,20 @@ def _check(got, want, ulps=2):
 
 # Sq = 300 and Lb = 257 end inside a tile of every variant (128 queries and
 # 128 or 64 keys for d <= 160, 64 and 64 for d = 512); kv_lens end inside a
-# self tile ([200, ...]), inside a bank tile (300 + 100) or at 0 (no key)
+# self tile ([200, ...]), inside a bank tile (300 + 100) or at 0 (no key).
+# At d = 512 each warpgroup takes 32 keys of a tile: 202 ends in the first
+# half of a self tile, 168 in the second, 400 and 557 inside bank tiles; a
+# batch of 2 is split over the keys (the wrapper's `wide_splits`), the
+# batch of 8 (one row per len) is not
 @pytest.mark.parametrize("d,bank,lens", [
     (40, True, [300, 557]), (40, True, [200, 400]), (80, False, [300, 150]),
     (80, True, [130, 0]), (160, True, None), (160, True, [77, 450]), (512, False, None),
-    (512, True, [299, 0])])
+    (512, True, [299, 0]), (512, True, [202, 400]), (512, True, [168, 557]),
+    (512, True, [300, 557, 0, 202, 168, 400, 64, 299])])
 def test_flash_attention_kernel(gen, d, bank, lens):
     s, h = 300, 2
-    q, k, v = _bf(gen, 2, s, h, d), _bf(gen, 2, s, h, d), _bf(gen, 2, s, h, d)
+    b = 2 if lens is None else len(lens)
+    q, k, v = _bf(gen, b, s, h, d), _bf(gen, b, s, h, d), _bf(gen, b, s, h, d)
     kb = _bf(gen, 1, 257, h, d) if bank else None
     vb = _bf(gen, 1, 257, h, d) if bank else None
     kl = None if lens is None else torch.tensor(lens, device="cuda", dtype=torch.int32)
@@ -64,7 +70,7 @@ def test_flash_attention_kernel(gen, d, bank, lens):
         assert got[lens.index(0)].abs().max().item() == 0
 
 
-@pytest.mark.parametrize("d,bank", [(40, True), (80, False), (160, True)])
+@pytest.mark.parametrize("d,bank", [(40, True), (80, False), (160, True), (512, False)])
 def test_flash_attention_kernel_packed_qkv(gen, d, bank):
     """Strided BSHD q/k/v taken from one packed (B, S, 3, H, D) projection,
     as the packed JAX call sites pass them."""
@@ -78,6 +84,23 @@ def test_flash_attention_kernel_packed_qkv(gen, d, bank):
     got = A.flash_attention(q, k, v, kl, kb, vb)
     want = A.attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), kl, kb, vb)
     _check(got, want)
+
+
+# (1, 4096, 1, 512), the reference encode, splits its keys over 2 blocks
+# and combines them; (8, 4096, 1, 512), a decode chunk, does not
+@pytest.mark.parametrize("b", [1, 8])
+def test_flash_attention_kernel_deterministic_d512(gen, b):
+    """Two K1 calls at d = 512 on the same inputs are bitwise equal, with
+    the key split and its fixed-order combine and without."""
+    q, k, v = (_bf(gen, b, 4096, 1, 512) for _ in range(3))
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    assert (A.wide_splits(b, 1, 4096, 4096, sms) > 1) == (b == 1)
+    first, lse1 = A.flash_attention(q, k, v, return_lse=True)
+    second, lse2 = A.flash_attention(q, k, v, return_lse=True)
+    assert torch.equal(first, second) and torch.equal(lse1, lse2)
+    want, want_lse = A.attention_plain(q, k, v, return_lse=True)
+    _check(first, want)
+    assert (lse1 - want_lse).abs().max().item() <= 1e-3
 
 
 def _gn_input(gen, shape, groups, dtype=torch.bfloat16):

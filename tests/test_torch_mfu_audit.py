@@ -179,6 +179,8 @@ def test_k1_executed_closed_form():
     assert got == 4 * 8 * 48 * 4096 * (60 * 4096 + 60 * 8192)
     # a ragged kv_len runs whole key tiles; d = 160 runs 64-key tiles
     assert MA.k1_executed(100, 1, 160, 100, 0, [100]) == 4 * 160 * 128 * 128
+    # d = 512 (the VAE's mid attention) runs 64-query and 64-key tiles
+    assert MA.k1_executed(300, 1, 512, 300, 0, [300, 202]) == 4 * 512 * 320 * (320 + 256)
 
 
 def test_jax_cost_analysis_counts_at_least_the_port():

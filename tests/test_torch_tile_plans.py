@@ -1,5 +1,6 @@
-"""The Python plans of K2 (`norms.gn_plan`), K3 (`fused_ln.gemm_plan`) and
-K4's kernel A (`motion_attention.attn_plan`): every shape that the port's
+"""The Python plans of K2 (`norms.gn_plan`), K3 (`fused_ln.gemm_plan`),
+K4's kernel A (`motion_attention.attn_plan`) and K1's key split at d = 512
+(`attention.wide_splits`): every shape that the port's
 main path, its trainer and the card's tiny pipelines hand these kernels
 gets a plan that fits 227 KB of shared memory, and a shape that cannot fit
 raises before any launch. The C entries check the same plan
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from mmgt_tpu_torch.models.unet3d import skip_channels
+from mmgt_tpu_torch.ops import attention as A
 from mmgt_tpu_torch.ops import fused_ln as L
 from mmgt_tpu_torch.ops import motion_attention as M
 from mmgt_tpu_torch.ops import norms as N
@@ -288,3 +290,16 @@ def test_gn_plan_wav2vec2_conv0_streams(samples):
     plan = N.gn_plan(1, l, 512, 512, torch.float32)
     assert plan["regime"] == "streaming" and plan["k"] >= 3 * N.SMS
     assert plan["smem"] == 14336 and plan["ws"] == plan["k"] * 2 * 512
+
+
+# K1 at d = 512: (B, Sq, keys) of the VAE's mid attention on the main path
+# (the reference encode, a decode chunk, the video train step's encode, the
+# image pretrain's encode at 256^2) and a short sequence; splits on 132 SMs
+@pytest.mark.parametrize("b,sq,keys,splits", [
+    (1, 4096, 4096, 2), (8, 4096, 4096, 1), (12, 4096, 4096, 1), (4, 1024, 1024, 2),
+    (1, 1024, 1024, 4), (1, 100, 100, 2)])
+def test_k1_wide_splits_fill_the_card(b, sq, keys, splits):
+    got = A.wide_splits(b, 1, sq, keys, 132)
+    assert got == splits
+    blocks = -(-sq // A.WIDE_TILE) * b
+    assert 1 <= got <= A.MAX_SPLITS and got * blocks <= max(132, blocks)
