@@ -21,7 +21,11 @@ Phases, in order; any failure exits non-zero:
      f32, 512 groups of one channel) and a formerly over-limit plan
      ((1, 64, 768) f32, 768 groups; f32 rows within F32_REL_TOL of the
      largest output), K3 at the level-0 q/k/v,
-     level-0 GEGLU and level-2 audio-q shapes, K4 at levels 0, 1 and 3, K5
+     level-0 GEGLU and level-2 audio-q shapes and in its tiled regime
+     (K >= 640) at the level-1 q/k/v, GEGLU and audio q, the level-2 GEGLU
+     and K4's W_o + residual at levels 1 and 3 (two tiled calls bitwise
+     equal), K1 at d = 192 and 264 (the d = 512 path, keys split), K4 at
+     levels 0, 1 and 3, K5
      at the level-1, level-2 and mid bank-concat and level-0 audio
      self-attention shapes (every K5 shape timed against SDPA's backward);
      K1 (no LSE), K2 and K3 at pose2img's level 0 (2 rows of 4096 tokens),
@@ -445,6 +449,10 @@ def check_k1(torch, A):
          "tp2 L0 bank (4 heads)"),
         ("tp2 L0 concat + lse (training), 4 heads", 2, 4096, 8192, 4, 40, False, [4096, 8192],
          True, "tp2 L0 concat + lse (4 heads)"),
+        # 160 < d < 512 runs the d = 512 path, the columns past d zero-filled;
+        # both rows split their keys over blocks
+        ("d=192 bank, key split", 2, 300, 300, 2, 192, True, [202, 400], True, None),
+        ("d=264, key split", 2, 300, 300, 2, 264, False, None, False, None),
     ]
     tol_lse = 1e-3
     rec, rows = None, {}
@@ -462,7 +470,11 @@ def check_k1(torch, A):
         err, tol = max_err(got, want), ulp_tol(want)
         log(f"K1 {name}: max_abs_err {err:.3e} (tol {tol:.3e}, 2 bf16 ulps)")
         require(math.isfinite(err) and err <= tol, f"K1 {name}: err {err} > {tol}")
-        if d == 512 and not lse:  # the d = 512 path's LSE (and its key split's combine)
+        if d > 160:
+            splits = A.wide_splits(b, h, s, skv + (s if bank else 0),
+                                   torch.cuda.get_device_properties(0).multi_processor_count)
+            require(d == 512 or splits > 1, f"K1 {name}: no key split")
+        if d > 160 and not lse:  # the d > 160 path's LSE (and its key split's combine)
             _, got_lse = A.flash_attention(q, k, v, kl, kb, vb, return_lse=True)
             _, want_lse = A.attention_plain(q, k, v, kl, kb, vb, return_lse=True)
             e_lse = max_err(got_lse, want_lse)
@@ -593,51 +605,35 @@ def check_k2(torch, N):
 
 
 def check_k3(torch, L):
-    """K3 against its plain version; every case timed with its bound and
-    the library pair F.linear(F.layer_norm(x), cat(W), cat(b))."""
-    dev = "cuda"
-    g = torch.Generator(device=dev).manual_seed(SEED + 2)
-    F = torch.nn.functional
+    """K3 against its plain version at every row of `tools/k3_rows.ROWS`;
+    every row timed with its bound and the library call (F.linear of
+    F.layer_norm, or torch.addmm for K4's W_o rows), with the plan's
+    regime; two calls of the tiled regime bitwise equal."""
+    from mmgt_tpu_torch.tools.k3_rows import ROWS, case
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rec, rows = None, {}
-    for name, nrow, l, c, outs, bias in [
-        ("L0 q/k/v (48 rows)", 48, 4096, 320, [320, 320, 320], False),
-        ("L0 GEGLU", 48, 4096, 320, [2560], True),
-        ("L2 3 audio q", 24, 256, 1280, [1280, 1280, 1280], False),
-        ("pose2img L0 q/k/v (2 rows)", 2, 4096, 320, [320, 320, 320], False),
-        ("train_image L0 q/k/v (4 rows)", 4, 1024, 320, [320, 320, 320], False),
-        # the tp shards: q/k/v at tp = 2 and 4 (80 columns: a partial tile),
-        # the GEGLU half-pairs at tp = 2
-        ("tp2 L0 q/k/v (48 rows)", 48, 4096, 320, [160, 160, 160], False),
-        ("tp4 L0 q/k/v (48 rows)", 48, 4096, 320, [80, 80, 80], False),
-        ("tp2 L0 GEGLU half-pairs", 48, 4096, 320, [1280], True),
-    ]:
-        x = torch.randn(nrow, l, c, generator=g, device=dev).to(torch.bfloat16)
-        gam = (1 + 0.1 * torch.randn(c, generator=g, device=dev)).to(torch.bfloat16)
-        bet = (0.1 * torch.randn(c, generator=g, device=dev)).to(torch.bfloat16)
-        ws = [(torch.randn(n, c, generator=g, device=dev) / math.sqrt(c)).to(torch.bfloat16)
-              for n in outs]
-        bs = [(torch.randn(n, generator=g, device=dev) * 0.1).to(torch.bfloat16) if bias
-              else None for n in outs]
-        got = L.ln_projections(x, gam, bet, ws, bs, 1e-5)
-        want = L.ln_projections_plain(x, gam, bet, ws, bs, 1e-5)
+    for row in ROWS:
+        name = f"{row[0]} {row[1]}"
+        cs = case(torch, L, row, g)
+        fn = cs["fn"]
+        got, want = fn(), cs["plain"]()
         err = max(max_err(a, b_) for a, b_ in zip(got, want))
         tol = max(ulp_tol(w_) for w_ in want)
-        log(f"K3 {name}: max_abs_err {err:.3e} (tol {tol:.3e}, 2 bf16 ulps)")
+        plan = L.gemm_plan(cs["m"], cs["k"], cs["ns"])
+        log(f"K3 {name}: max_abs_err {err:.3e} (tol {tol:.3e}, 2 bf16 ulps), {plan['regime']}")
         require(math.isfinite(err) and err <= tol, f"K3 {name}: err {err} > {tol}")
-        wcat = torch.cat(ws, 0)
-        bcat = torch.cat(bs, 0) if bias else None
-        m = nrow * l
-        row = time_row(
-            lambda: L.ln_projections(x, gam, bet, ws, bs, 1e-5),
-            lambda: L.ln_projections_plain(x, gam, bet, ws, bs, 1e-5),
-            lambda: F.linear(F.layer_norm(x, (c,), gam, bet, 1e-5), wcat, bcat),
-            2.0 * m * c * sum(outs), nbytes(x, gam, bet, *ws, *bs, *got),
-            f"{name}: x {tuple(x.shape)}, W {[(n, c) for n in outs]}")
+        if plan["regime"] == "tiled":
+            again = fn()
+            require(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+                    f"K3 {name}: two calls differ")
+        row = time_row(fn, cs["plain"], cs["lib"], cs["flops"], cs["in_bytes"] + nbytes(*got),
+                       f"{name}: {cs['label']}; {plan['regime']}")
         row["max_abs_err"] = err
         rows[name] = row
         if rec is None:
             rec = dict(row, rows=rows)
-        del x, got, want
+        del cs, fn, got, want
         torch.cuda.empty_cache()
     return rec
 

@@ -49,7 +49,7 @@ SIGNATURES = {
         "mmgt_gn_max_clusters": [INT] * 4 + [VP],
     },
     "ln_proj": {
-        "mmgt_ln_gemm": [VP] * 3 + [INT] * 2 + [FLT, INT] + [VP] * 3 + [INT] * 3 + [VP] * 9
+        "mmgt_ln_gemm": [VP] * 3 + [INT] * 2 + [FLT, INT] + [VP] * 3 + [INT] * 3 + [VP] * 10
         + [INT] * 4 + [VP],
     },
     "motion_attn": {

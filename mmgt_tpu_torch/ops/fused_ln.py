@@ -7,12 +7,23 @@ Weights use torch's Linear layout (N_i, C). Math as
 normalised row rounded to the weight dtype, f32 accumulation and bias).
 
 K3 (csrc/ln_proj.cu) replaces the TPU kernel
-mmgt_tpu/ops/fused_ln.py:_ln_proj_kernel with one launch for all weights:
-each block loads a stripe of x rows once by TMA, normalises it in shared
-memory, and runs it against every weight tile (streamed through a TMA ring)
-on wgmma; the epilogue adds the f32 bias. The tile plan (`gemm_plan`) is
-computed here and checked by the C entry. The normalised tensor never
-reaches device memory, and x is read once.
+mmgt_tpu/ops/fused_ln.py:_ln_proj_kernel with one call for all weights,
+in one of two regimes chosen by K (`gemm_plan`, checked by the C entry):
+  * stripe (K <= 576): each block loads a 128-row stripe of x once by TMA,
+    normalises it in shared memory, and runs it against every weight tile
+    (streamed through a TMA ring) on wgmma; one launch, and the normalised
+    tensor never reaches device memory;
+  * tiled (K >= 640, any K): a LayerNorm pre-pass (one warp a row, f32
+    statistics, the normalised row rounded to bf16 into an (M, K) scratch
+    that `ln_gemm` allocates), then persistent blocks walk 128 x 256 output
+    tiles, x and the weights streamed through a TMA ring in 64-column
+    chunks; the two 128-column units of a tile may belong to different
+    weights.
+The epilogue adds the f32 bias (and K4's residual). What bounds it: at
+K = 320 the bytes (x, the outputs); at K >= 640 the operations, which the
+tiled GEMM feeds at about 47 bytes of x and weights from L2 a clock an
+SM, with the tensor cores idle through each tile's epilogue; its
+pre-pass moves x twice more.
 
 On a CPU tensor `ln_projections` runs `ln_projections_plain`; on a CUDA
 tensor it launches K3 or raises. Gradients (x, gamma, beta, each weight and
@@ -22,6 +33,7 @@ bias): the forward still runs K3 and the backward is autograd through
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -47,54 +59,80 @@ def ln_projections_plain(x, gamma, beta, ws, bs, eps: float = 1e-5):
     return tuple(outs)
 
 
-# K3's tile plan (csrc/ln_proj.cu): a block holds a stripe of BM rows of x
-# (all K columns) and a ring of BN x 64 weight tiles in shared memory
+# K3's tile plans (csrc/ln_proj.cu). Stripe: a block holds a stripe of 128
+# rows of x (all K columns) and a ring of 160 x 64 weight tiles. Tiled:
+# persistent blocks walk 128 x 256 output tiles through a ring of (128 x 64
+# x box, two 128 x 64 weight boxes) stages.
 SMEM_LIMIT = 232448      # 227 KB a block on the H100
 SMS = 132                # streaming multiprocessors of the H100
-BN = 160                 # output columns of a tile
+BM = 128                 # rows of a stripe or a tile
+BN = 160                 # output columns of a stripe tile
+UNIT = 128               # output columns of a tiled unit (one weight's box)
 MAX_STAGES = 8
+TILED_STAGE = BM * 128 + 2 * UNIT * 128   # bytes of one tiled ring stage
+TILED_STAGES = 4
 
 
-def gemm_smem(bm: int, k: int, stages: int) -> int:
-    """Shared-memory bytes of a K3 block (as `smem_bytes` in
-    csrc/ln_proj.cu): 1024 of alignment slack, the stripe, the two consumer
-    warpgroups' bf16 output staging tiles (64 rows x 160 columns at 128-row
-    stripes, x 80 at 64-row ones), the weight ring and the mbarriers."""
-    kchunks = -(-k // 64)
-    wg_cols = BN if bm == 128 else BN // 2
-    return (1024 + kchunks * bm * 128 + 2 * 64 * wg_cols * 2 + stages * BN * 128
-            + 8 * (2 * stages + 3))
+def gemm_smem(regime: str, k: int, stages: int) -> int:
+    """Shared-memory bytes of a K3 block (as `stripe_smem` and `tiled_smem`
+    in csrc/ln_proj.cu): 1024 of alignment slack; stripe: the stripe, the
+    two consumer warpgroups' 64 x 160 bf16 staging tiles, the weight ring
+    and the mbarriers; tiled: the ring, two 64 x 128 staging tiles and the
+    mbarriers (K plays no part)."""
+    if regime == "stripe":
+        return (1024 + -(-k // 64) * BM * 128 + 2 * 64 * BN * 2 + stages * BN * 128
+                + 8 * (2 * stages + 3))
+    if regime == "tiled":
+        return 1024 + stages * TILED_STAGE + 2 * 64 * UNIT * 2 + 8 * (2 * stages + 2)
+    raise ValueError(f"K3 has no regime {regime!r}")
 
 
 def gemm_plan(m: int, k: int, ns: Sequence[int]) -> dict:
-    """K3's tile plan for x (m, k) against weights of ns[i] output columns:
-    BM = 128 rows a stripe where a ring of at least two weight tiles fits
-    beside it, else 64; as many ring stages as fit (up to 8); the N tiles
-    split over enough blocks per stripe to give two waves of 132 SMs.
-    Raises where no plan fits 227 KB."""
+    """K3's plan for x (m, k) against weights of ns[i] output columns.
+
+    Stripe, where a 128-row stripe of all K columns leaves room for a ring
+    of at least two 160-column weight tiles (K <= 576): as many ring stages
+    as fit (up to 8), and the N tiles split over enough blocks a stripe to
+    give two waves of 132 SMs. Tiled otherwise (K >= 640, any K): 128 x 256
+    tiles of two 128-column units (units of different weights may share a
+    tile), a ring of 4 stages, min(tiles, 132) persistent blocks. Keys:
+    regime, bm, bn (rows and columns of a block's tile), stages, split
+    (stripe: blocks a stripe; tiled: persistent blocks), smem, stripes (row
+    stripes or row tiles), tiles (stripe: N tiles a stripe; tiled: tiles in
+    all), units (tiled), cols (the output columns the kernel computes,
+    padded). Raises where the kernel cannot take the shape. The result is
+    cached and shared: do not modify it."""
+    return _gemm_plan(m, k, tuple(ns))
+
+
+@functools.lru_cache(maxsize=None)
+def _gemm_plan(m: int, k: int, ns: Tuple[int, ...]) -> dict:
     if k <= 0 or k % 8 != 0:
         raise ValueError(f"K3 takes K % 8 == 0, got K = {k}")
     if not 1 <= len(ns) <= 3 or any(n <= 0 or n % 8 != 0 for n in ns):
         raise ValueError(f"K3 takes 1-3 weights with N % 8 == 0, got {list(ns)}")
-    for bm in (128, 64):
-        stages = min(MAX_STAGES, (SMEM_LIMIT - gemm_smem(bm, k, 0)) // (BN * 128 + 16))
-        if stages >= 2:
-            break
-    else:
-        raise ValueError(f"K3: a 64-row stripe of K = {k} and two weight tiles do not fit "
-                         f"{SMEM_LIMIT} bytes of shared memory")
-    tiles = sum(-(-n // BN) for n in ns)
-    stripes = max(1, -(-m // bm))
-    nsplit = min(tiles, max(1, -(-2 * SMS // stripes)))
-    return dict(bm=bm, bn=BN, stages=stages, nsplit=nsplit, smem=gemm_smem(bm, k, stages),
-                stripes=stripes, tiles=tiles)
+    stripes = max(1, -(-m // BM))
+    stages = min(MAX_STAGES, (SMEM_LIMIT - gemm_smem("stripe", k, 0)) // (BN * 128 + 16))
+    if stages >= 2:
+        tiles = sum(-(-n // BN) for n in ns)
+        nsplit = min(tiles, max(1, -(-2 * SMS // stripes)))
+        return dict(regime="stripe", bm=BM, bn=BN, stages=stages, split=nsplit,
+                    smem=gemm_smem("stripe", k, stages), stripes=stripes, tiles=tiles,
+                    cols=tiles * BN)
+    units = sum(-(-n // UNIT) for n in ns)
+    ntiles = -(-units // 2)
+    tiles = stripes * ntiles
+    return dict(regime="tiled", bm=BM, bn=2 * UNIT, stages=TILED_STAGES, split=min(tiles, SMS),
+                smem=gemm_smem("tiled", k, TILED_STAGES), stripes=stripes, tiles=tiles,
+                units=units, cols=ntiles * 2 * UNIT)
 
 
 def ln_gemm(x2, gamma, beta, ws, bs, eps: float = 1e-5, res=None):
-    """One launch of csrc/ln_proj.cu's kernel on a bf16 (M, K) matrix: the
-    LayerNorm of each row (gamma, beta f32) when `gamma` is given, else x
-    as it is; the f32 bias and an optional bf16 residual in the epilogue.
-    Shared by K3 and K4; it does not count launches itself."""
+    """One call of csrc/ln_proj.cu on a bf16 (M, K) matrix: the LayerNorm
+    of each row (gamma, beta f32) when `gamma` is given, else x as it is;
+    the bias (cast to f32 here where it is not) and an optional bf16
+    residual in the epilogue. Shared by K3 and K4; it does not count
+    launches itself."""
     m, k = x2.shape
     nw = len(ws)
     if not x2.is_contiguous() or x2.dtype != torch.bfloat16:
@@ -106,6 +144,8 @@ def ln_gemm(x2, gamma, beta, ws, bs, eps: float = 1e-5, res=None):
     res = list(res) if res is not None else [None] * nw
     outs = [torch.empty((m, w.shape[0]), device=x2.device, dtype=torch.bfloat16) for w in ws]
     bias = [None if b is None else b.float().contiguous() for b in bs]
+    # the tiled regime's LayerNorm pre-pass writes the normalised x here
+    xn = torch.empty_like(x2) if plan["regime"] == "tiled" and gamma is not None else None
     pad = lambda seq: list(seq) + [None] * (3 - nw)
     w3, b3, r3, o3 = pad(ws), pad(bias), pad(res), pad(outs)
     n3 = [w.shape[0] for w in ws] + [0] * (3 - nw)
@@ -114,8 +154,8 @@ def ln_gemm(x2, gamma, beta, ws, bs, eps: float = 1e-5, res=None):
         x2.data_ptr(), _build.ptr(gamma), _build.ptr(beta), m, k, float(eps), nw,
         *[_build.ptr(t) for t in w3], *n3,
         *[_build.ptr(t) for t in b3], *[_build.ptr(t) for t in r3],
-        *[_build.ptr(t) for t in o3], plan["bm"], plan["stages"], plan["nsplit"], plan["smem"],
-        _build.stream_ptr(x2),
+        *[_build.ptr(t) for t in o3], _build.ptr(xn), int(plan["regime"] == "tiled"),
+        plan["stages"], plan["split"], plan["smem"], _build.stream_ptr(x2),
     )
     _build.check(lib, rc, "LN-projection GEMM")
     return outs

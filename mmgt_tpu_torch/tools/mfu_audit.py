@@ -101,12 +101,13 @@ def k1_executed(sq: int, heads: int, d: int, ls: int, lb: int, kv_lens: Iterable
 
 def k3_executed(m: int, k: int, ns: Sequence[int]) -> int:
     """K3's FLOPs for x (m, k) against weights of ns output columns, as
-    `gemm_plan` tiles it: stripes of bm rows x 160-column tiles x 64-column
-    K chunks."""
+    `gemm_plan` tiles it: 128-row stripes (or row tiles) x the plan's padded
+    columns (160-column tiles a weight, or 256-column tiles of two
+    128-column units) x 64-column K chunks."""
     from mmgt_tpu_torch.ops.fused_ln import gemm_plan
 
     plan = gemm_plan(m, k, list(ns))
-    return 2 * plan["stripes"] * plan["bm"] * plan["tiles"] * plan["bn"] * _up(k, 64)
+    return 2 * plan["stripes"] * plan["bm"] * plan["cols"] * _up(k, 64)
 
 
 def k4_executed(b: int, f: int, l: int, c: int, heads: int, inner: int) -> int:

@@ -42,17 +42,19 @@ def _check(got, want, ulps=2):
 
 
 # Sq = 300 and Lb = 257 end inside a tile of every variant (128 queries and
-# 128 or 64 keys for d <= 160, 64 and 64 for d = 512); kv_lens end inside a
+# 128 or 64 keys for d <= 160, 64 and 64 for d > 160); kv_lens end inside a
 # self tile ([200, ...]), inside a bank tile (300 + 100) or at 0 (no key).
-# At d = 512 each warpgroup takes 32 keys of a tile: 202 ends in the first
+# At d > 160 each warpgroup takes 32 keys of a tile: 202 ends in the first
 # half of a self tile, 168 in the second, 400 and 557 inside bank tiles; a
 # batch of 2 is split over the keys (the wrapper's `wide_splits`), the
-# batch of 8 (one row per len) is not
+# batch of 8 (one row per len) is not. d = 192 and 264 run the d = 512
+# path with the columns past d zero-filled (264: a partial 64-column box)
 @pytest.mark.parametrize("d,bank,lens", [
     (40, True, [300, 557]), (40, True, [200, 400]), (80, False, [300, 150]),
     (80, True, [130, 0]), (160, True, None), (160, True, [77, 450]), (512, False, None),
     (512, True, [299, 0]), (512, True, [202, 400]), (512, True, [168, 557]),
-    (512, True, [300, 557, 0, 202, 168, 400, 64, 299])])
+    (512, True, [300, 557, 0, 202, 168, 400, 64, 299]), (192, True, [202, 400]),
+    (264, False, None)])
 def test_flash_attention_kernel(gen, d, bank, lens):
     s, h = 300, 2
     b = 2 if lens is None else len(lens)
@@ -66,6 +68,9 @@ def test_flash_attention_kernel(gen, d, bank, lens):
     want, want_lse = A.attention_plain(q, k, v, kl, kb, vb, return_lse=True)
     _check(got, want)
     assert (lse - want_lse).abs().max().item() <= 1e-3
+    if d in (192, 264):  # these rows split their keys over blocks
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        assert A.wide_splits(b, h, s, s + (257 if bank else 0), sms) > 1
     if lens is not None and 0 in lens:  # a row with no valid key gives 0
         assert got[lens.index(0)].abs().max().item() == 0
 
@@ -243,9 +248,10 @@ def test_ln_projections_kernel_pose2img_rows(gen, outs, bias):
         _check(got, want)
 
 
-# M against the 128- and 64-row stripes; K = 320 (128-row stripes), 640 and
-# 1280 (64-row); 1-3 weights with N off the 160-column tile (96, 200), the
-# GEGLU (2560) and the widest (10240) widths; with and without bias
+# M against the 128-row stripes and tiles; K = 64 and 320 (stripes), 640
+# and 1280 (tiles); 1-3 weights with N off the 160-column stripe tile and
+# the 128-column unit (96, 200), the GEGLU (2560) and the widest (10240)
+# widths; with and without bias
 @pytest.mark.parametrize("m,k,outs,bias", [
     (333, 320, [320, 320, 320], False), (1000, 640, [640, 200], True),
     (200, 1280, [1280, 96, 2560], True), (300, 320, [2560], True), (130, 1280, [10240], False),
@@ -262,7 +268,42 @@ def test_ln_projections_kernel_tile_edges(gen, m, k, outs, bias):
         _check(gg, want)
 
 
-@pytest.mark.parametrize("m,k,n", [(333, 320, 320), (1000, 640, 640), (200, 1280, 1280)])
+# K3's tiled regime (K >= 640): K = 640, 1280 and above (1344: a partial
+# chunk; 2560); M off the 128-row tile (77, 130, 333, 1000); N off the
+# 128-column unit and the 256-column tile (64: one unit; 136: a second unit
+# of 8 columns, its second 64-column box past N; 200; 640: units of two
+# weights in one tile); with and without bias; x far from a zero mean (the
+# shifted sums), and rows past M
+@pytest.mark.parametrize("m,k,outs,bias,offset", [
+    (1000, 640, [640, 640, 640], False, 0.0), (333, 1280, [1280, 200], True, 0.0),
+    (130, 2560, [136], True, 0.0), (77, 1344, [64, 640], False, 0.0),
+    (300, 1280, [1280, 1280, 1280], True, 40.0)])
+def test_ln_projections_kernel_tiled(gen, m, k, outs, bias, offset):
+    x = (_bf(gen, m, k).float() + offset).to(torch.bfloat16)
+    g, b = 1 + _bf(gen, k, scale=0.1), _bf(gen, k, scale=0.1)
+    ws = [_bf(gen, n, k, scale=1 / math.sqrt(k)) for n in outs]
+    bs = [_bf(gen, n, scale=0.1) if bias else None for n in outs]
+    assert L.gemm_plan(m, k, outs)["regime"] == "tiled"
+    before = L.LAUNCHES
+    got = L.ln_projections(x, g, b, ws, bs)
+    assert L.LAUNCHES == before + 1
+    for gg, want in zip(got, L.ln_projections_plain(x, g, b, ws, bs)):
+        _check(gg, want)
+
+
+@pytest.mark.parametrize("m,k,outs", [(48 * 256, 1280, [1280] * 3), (1000, 640, [640])])
+def test_ln_projections_kernel_deterministic(gen, m, k, outs):
+    """Two K3 calls on the same inputs are bitwise equal (tiled regime)."""
+    x = _bf(gen, m, k)
+    g, b = 1 + _bf(gen, k, scale=0.1), _bf(gen, k, scale=0.1)
+    ws = [_bf(gen, n, k, scale=1 / math.sqrt(k)) for n in outs]
+    first = L.ln_projections(x, g, b, ws, [None] * len(outs))
+    second = L.ln_projections(x, g, b, ws, [None] * len(outs))
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+@pytest.mark.parametrize("m,k,n", [(333, 320, 320), (1000, 640, 640), (200, 1280, 1280),
+                                   (333, 1408, 200)])
 def test_gemm_residual_epilogue(gen, m, k, n):
     """The GEMM without LayerNorm and with the bias + residual epilogue
     (K4's W_o)."""

@@ -27,7 +27,7 @@ from mmgt_tpu_torch.models.unet_ref import ReferenceUNet2D
 from mmgt_tpu_torch.models.vae import AutoencoderKL
 from mmgt_tpu_torch.nn.layers import Attention, LayerNorm
 from mmgt_tpu_torch.utils import convert as PC
-from torch_port_util import close, init_noised, t
+from torch_port_util import close, init_noised, one_torch_thread, t  # noqa: F401
 
 CHANS = (32, 64, 64, 64)
 HEADS = 8

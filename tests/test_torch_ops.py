@@ -21,7 +21,7 @@ from mmgt_tpu_torch.ops import attention as A
 from mmgt_tpu_torch.ops import fused_ln as L
 from mmgt_tpu_torch.ops import motion_attention as M
 from mmgt_tpu_torch.ops import norms as N
-from torch_port_util import close, t
+from torch_port_util import close, one_torch_thread, t  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

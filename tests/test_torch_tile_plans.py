@@ -47,32 +47,56 @@ def test_k3_plan_fits_every_path_shape(config):
     chans, tokens = WIDTHS[config]
     for m, k, ns in _k3_shapes(chans, tokens):
         plan = L.gemm_plan(m, k, ns)
-        assert plan["bm"] in (64, 128) and plan["bn"] == 160
+        assert plan["bm"] == 128 and plan["stripes"] == -(-m // 128)
         assert 2 <= plan["stages"] <= L.MAX_STAGES
-        assert plan["smem"] == L.gemm_smem(plan["bm"], k, plan["stages"]) <= SMEM
-        # one more stage would not fit: the ring is as deep as the budget allows
-        if plan["stages"] < L.MAX_STAGES:
-            assert L.gemm_smem(plan["bm"], k, plan["stages"] + 1) > SMEM
-        assert 1 <= plan["nsplit"] <= plan["tiles"] == sum(-(-n // 160) for n in ns)
+        assert plan["smem"] == L.gemm_smem(plan["regime"], k, plan["stages"]) <= SMEM
+        if plan["regime"] == "stripe":
+            # the whole-K stripe fits beside the ring, as deep as the budget allows
+            assert k <= 576 and plan["bn"] == 160
+            if plan["stages"] < L.MAX_STAGES:
+                assert L.gemm_smem("stripe", k, plan["stages"] + 1) > SMEM
+            assert 1 <= plan["split"] <= plan["tiles"] == sum(-(-n // 160) for n in ns)
+            assert plan["cols"] == 160 * plan["tiles"]
+        else:
+            # 128 x 256 tiles of two 128-column units, one persistent block an SM
+            assert k >= 640 and plan["bn"] == 256 and plan["stages"] == L.TILED_STAGES
+            assert L.gemm_smem("tiled", k, plan["stages"] + 1) > SMEM
+            assert plan["units"] == sum(-(-n // 128) for n in ns)
+            assert plan["tiles"] == plan["stripes"] * -(-plan["units"] // 2)
+            assert plan["split"] == min(plan["tiles"], L.SMS)
+            assert plan["cols"] == 256 * -(-plan["units"] // 2)
 
 
-@pytest.mark.parametrize("k,bm", [(32, 128), (320, 128), (576, 128), (640, 64), (1280, 64)])
+@pytest.mark.parametrize("k,bm", [(32, 128), (320, 128), (576, 128), (640, 128), (1280, 128)])
 def test_k3_plan_stripe_rows(k, bm):
-    """128-row stripes while two weight tiles fit beside them, else 64."""
-    assert L.gemm_plan(4096, k, [k])["bm"] == bm
+    """128 rows a block in both regimes: a resident stripe while two weight
+    tiles fit beside it (K <= 576), else a 128 x 256 tile streamed."""
+    plan = L.gemm_plan(4096, k, [k])
+    assert plan["bm"] == bm
+    assert plan["regime"] == ("stripe" if k <= 576 else "tiled")
 
 
 def test_k3_plan_splits_n_only_for_few_stripes():
-    assert L.gemm_plan(48 * 4096, 320, [320] * 3)["nsplit"] == 1
-    small = L.gemm_plan(24 * 256, 1280, [1280] * 3)  # 96 stripes of 64 rows
-    assert small["nsplit"] * small["stripes"] >= 2 * L.SMS
+    assert L.gemm_plan(48 * 4096, 320, [320] * 3)["split"] == 1
+    small = L.gemm_plan(2 * 4096, 320, [320] * 3)  # pose2img: 64 stripes
+    assert small["split"] * small["stripes"] >= 2 * L.SMS
+    # the tiled regime runs one block an SM, or one a tile where there are fewer
+    assert L.gemm_plan(24 * 256, 1280, [1280] * 3)["split"] == L.SMS
+    assert L.gemm_plan(48 * 64, 1280, [1280])["split"] == 24 * 5
 
 
-@pytest.mark.parametrize("k,ns", [(1344, [64]), (2560, [2560]), (12, [64]), (320, [100]),
-                                  (320, [320] * 4), (320, [])])
+@pytest.mark.parametrize("k,ns", [(12, [64]), (320, [100]), (320, [320] * 4), (320, [])])
 def test_k3_plan_raises_where_nothing_fits(k, ns):
     with pytest.raises(ValueError):
         L.gemm_plan(1000, k, ns)
+
+
+@pytest.mark.parametrize("k,ns", [(1344, [64]), (2560, [2560])])
+def test_k3_plan_tiles_any_k(k, ns):
+    """K past what a resident stripe could hold (formerly raised): the tiled
+    regime streams it in 64-column chunks at the same shared memory."""
+    plan = L.gemm_plan(1000, k, ns)
+    assert plan["regime"] == "tiled" and plan["smem"] == L.gemm_smem("tiled", 640, 4) <= SMEM
 
 
 def _k4_shapes(chans, tokens, heads):
