@@ -414,19 +414,40 @@ def time_row(fn, plain, lib, flops, nb, shape, plain_iters=3):
 
 
 def check_k1(torch, A):
+    """K1 against its plain version at every row of `tools/k1_rows.ROWS`
+    (its d <= 160 rows and the f32 route) and at the d = 512 path's shapes;
+    every timed row with its bound and SDPA."""
+    from mmgt_tpu_torch.tools.k1_rows import ROWS, case
+
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(SEED)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    tol_lse = 1e-3
+    rec, rows = None, {}
+    for row in ROWS:
+        name, lse, f32 = f"{row[0]} {row[1]}", row[9], row[10]
+        cs = case(torch, A, row, g)
+        before = A.LAUNCHES
+        got, want = cs["fn"](), cs["plain"]()
+        require(A.LAUNCHES == before + 1, f"K1 {name}: the call did not launch K1")
+        if lse:
+            (got, got_lse), (want, want_lse) = got, want
+            e_lse = max_err(got_lse, want_lse)
+            require(e_lse <= tol_lse, f"K1 {name}: lse err {e_lse} > {tol_lse}")
+        # the f32 route's error is the inputs' bf16 rounding, against the f32 plain version
+        err, tol = max_err(got, want), ulp_tol(want)
+        log(f"K1 {name}: max_abs_err {err:.3e} (tol {tol:.3e}, 2 bf16 ulps)")
+        require(math.isfinite(err) and err <= tol, f"K1 {name}: err {err} > {tol}")
+        row_ = time_row(cs["fn"], cs["plain"], cs["lib"], cs["flops"],
+                        nbytes(*cs["inputs"], got, got_lse if lse else None),
+                        f"{name}: {cs['label']}")
+        row_["max_abs_err"] = err
+        rows[name] = row_
+        if rec is None:  # the hottest shape: the denoiser's level-0 bank attention
+            rec = dict(row_, rows=rows)
+        del cs, got, want
     cases = [  # (name, batch, q seq, self kv seq, heads, d, bank, kv_lens, lse, timed as)
-        ("L0 bank mixed kv_lens + lse", 2, 4096, 4096, 8, 40, True, [4096, 8192], True,
-         "_flash_attention_packed_2seg_fwd"),
-        ("L0 self only (ReferenceNet)", 1, 4096, 4096, 8, 40, False, None, False,
-         "_flash_attention_packed_fwd"),
-        ("L0 concat + lse (training)", 2, 4096, 8192, 8, 40, False, [4096, 8192], True,
-         "_flash_attention_fwd_lse"),
-        ("L1 bank", 2, 1024, 1024, 8, 80, True, [1024, 2048], False, "L1 bank (d = 80)"),
-        ("L2 bank", 2, 256, 256, 8, 160, True, [256, 512], True, "L2 bank (d = 160)"),
         ("L3 bank", 2, 64, 64, 8, 160, True, [64, 128], False, None),
         ("VAE mid d=512", 1, 4096, 4096, 1, 512, False, None, False, "_flash_attention"),
         # the VAE's mid attention on the main path's decode (one 8-frame
@@ -435,27 +456,11 @@ def check_k1(torch, A):
          "VAE decode chunk (8, 4096, 1, 512)"),
         ("VAE train encode d=512", 12, 4096, 4096, 1, 512, False, None, False,
          "VAE train encode (12, 4096, 1, 512)"),
-        # pose2img: raw banks concatenated at f = 1, the CFG-uncond row gated off
-        ("pose2img concat bank, no lse", 2, 4096, 8192, 8, 40, False, [4096, 8192], False,
-         "pose2img L0 concat, no lse"),
-        # the image trainer at 256^2, batch 4: the denoiser's level-0 self keys
-        # and per-example bank (one row dropped), and the ReferenceNet's own
-        ("train_image L0 concat + lse", 4, 1024, 2048, 8, 40, False, [1024, 2048, 2048, 2048],
-         True, "train_image L0 concat + lse"),
-        ("train_image ReferenceNet self + lse", 4, 1024, 1024, 8, 40, False, None, True,
-         "train_image ReferenceNet self + lse"),
-        # tensor parallelism, tp = 2: each rank's 4 of the 8 heads (the mesh phase)
-        ("tp2 L0 bank mixed kv_lens, 4 heads", 2, 4096, 4096, 4, 40, True, [4096, 8192], False,
-         "tp2 L0 bank (4 heads)"),
-        ("tp2 L0 concat + lse (training), 4 heads", 2, 4096, 8192, 4, 40, False, [4096, 8192],
-         True, "tp2 L0 concat + lse (4 heads)"),
         # 160 < d < 512 runs the d = 512 path, the columns past d zero-filled;
         # both rows split their keys over blocks
         ("d=192 bank, key split", 2, 300, 300, 2, 192, True, [202, 400], True, None),
         ("d=264, key split", 2, 300, 300, 2, 264, False, None, False, None),
     ]
-    tol_lse = 1e-3
-    rec, rows = None, {}
     for name, b, s, skv, h, d, bank, lens, lse, timed in cases:
         q, k, v = rnd(b, s, h, d), rnd(b, skv, h, d), rnd(b, skv, h, d)
         kb = rnd(1, s, h, d) if bank else None
@@ -483,54 +488,27 @@ def check_k1(torch, A):
             continue
         kc = k if kb is None else torch.cat([k, kb.expand(b, -1, -1, -1)], 1)
         vc = v if vb is None else torch.cat([v, vb.expand(b, -1, -1, -1)], 1)
-        mask = None
-        if kl is not None:
-            mask = (torch.arange(kc.shape[1], device=dev)[None, :] < kl[:, None])[:, None, None, :]
         qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
-        valid = sum(lens) if lens else b * kc.shape[1]
         row = time_row(
             lambda: A.flash_attention(q, k, v, kl, kb, vb, return_lse=lse),
             lambda: A.attention_plain(q, k, v, kl, kb, vb, return_lse=lse),
-            lambda: sdpa(qt, kt, vt, attn_mask=mask), 4.0 * h * d * s * valid,
+            lambda: sdpa(qt, kt, vt), 4.0 * h * d * s * b * kc.shape[1],
             nbytes(q, k, v, kb, vb, got, got_lse if lse else None),
             f"{name}: q {tuple(q.shape)}, K/V {tuple(kc.shape)}")
         row["max_abs_err"] = err
-        if d == 512:  # the key split's worth: the same call in one split
-            splits = A.wide_splits(b, h, s, skv, torch.cuda.get_device_properties(0)
-                                   .multi_processor_count)
-            keep, A.wide_splits = A.wide_splits, lambda *a: 1
-            try:
-                row["ms_one_split"] = time_ms(
-                    lambda: A.flash_attention(q, k, v, kl, kb, vb, return_lse=lse))
-            finally:
-                A.wide_splits = keep
-            row["key_splits"] = splits
-            log(f"K1 {name}: {splits} key split(s) {row['ms']:.4f} ms, one split "
-                f"{row['ms_one_split']:.4f} ms")
+        # the key split's worth: the same call in one split
+        splits = A.wide_splits(b, h, s, skv, torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
+        keep, A.wide_splits = A.wide_splits, lambda *a: 1
+        try:
+            row["ms_one_split"] = time_ms(
+                lambda: A.flash_attention(q, k, v, kl, kb, vb, return_lse=lse))
+        finally:
+            A.wide_splits = keep
+        row["key_splits"] = splits
+        log(f"K1 {name}: {splits} key split(s) {row['ms']:.4f} ms, one split "
+            f"{row['ms_one_split']:.4f} ms")
         rows[timed] = row
-        if rec is None:  # the hottest shape: the denoiser's level-0 bank attention
-            rec = dict(row, rows=rows)
-    # the f32 route of dot_product_attention (wav2vec2, 50 frames a second,
-    # on audio of 10.24 s or more):
-    # K1 in bf16 between two casts, against the f32 plain version; its error
-    # is the inputs' bf16 rounding
-    name, shape = "f32 route (wav2vec2 >= 512 frames)", (1, 600, 12, 64)
-    q, k, v = (torch.randn(*shape, generator=g, device=dev) for _ in range(3))
-    before = A.LAUNCHES
-    got = A.dot_product_attention(q, k, v)
-    require(A.LAUNCHES == before + 1, "K1 f32 route: dot_product_attention did not launch K1")
-    want = A.attention_plain(q, k, v)
-    err, tol = max_err(got, want), ulp_tol(want)
-    log(f"K1 {name}: max_abs_err {err:.3e} against the f32 plain version "
-        f"(tol {tol:.3e}, 2 bf16 ulps; largest |o| {want.abs().max().item():.3e})")
-    require(math.isfinite(err) and err <= tol, f"K1 {name}: err {err} > {tol}")
-    b, s_len, h, d = shape
-    row = time_row(lambda: A.dot_product_attention(q, k, v), lambda: A.attention_plain(q, k, v),
-                   lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
-                   4.0 * h * d * s_len * s_len * b, nbytes(q, k, v, got),
-                   f"{name}: q, K/V {shape} f32")
-    row["max_abs_err"] = err
-    rows["f32 route (1, 600, 12, 64)"] = row
     return rec
 
 

@@ -21,32 +21,42 @@
 //     maps over (D, S, H, B) with the caller's strides, one map for the
 //     self segment and one for the bank). It loads the Q tile once and then
 //     walks the self tiles and the bank tiles below kv_len through a
-//     3-stage ring of K/V buffers guarded by full/empty mbarriers. It
+//     4-stage ring of K/V buffers guarded by full/empty mbarriers. It
 //     gives its registers away (setmaxnreg 24).
 //   * Warpgroups 0 and 1 consume, 64 query rows each (setmaxnreg 240).
-//     Per key tile: S = Q K^T by wgmma m64nBKk16 (Q and K K-major from
-//     swizzled shared memory); the online softmax in registers (quad
-//     shuffles, exp2f with scale * log2(e) folded in, the O accumulator
-//     rescaled in registers); P converted to bf16 in registers and fed as
-//     wgmma's register A operand for O += P V, V read MN-major
-//     (transposed) from shared memory. S, the running max and sum and O
-//     never leave registers. Only the last partial tile of a segment is
-//     masked (columns at or past the limit get -inf before the max).
+//     Per key tile t: S_t = Q K_t^T by wgmma m64nBKk16 (Q and K K-major
+//     from swizzled shared memory) and O += P_{t-1} V_{t-1} (P as wgmma's
+//     register A operand, V read MN-major) are issued together as two
+//     commit groups; wait_group 1 lets the online softmax of S_t (quad
+//     shuffles, 2^x with scale * log2(e) folded in) run while P_{t-1} V_{t-1}
+//     is still on the tensor cores, and O is rescaled once it has retired.
+//     The two warpgroups take turns issuing (named barriers 1 and 2), so
+//     one's softmax overlaps the other's products. 2^x is one MUFU.EX2
+//     (ex2.approx.ftz; exp2f without --use_fast_math adds a compare and two
+//     predicated multiplies). S, the running max and sum and O never leave
+//     registers. Only the last partial tile of a segment is masked
+//     (columns at or past the limit get -inf before the max). Each wgmma
+//     descriptor is one add to a precomputed low word.
+//   * What bounds it (NVIDIA H100 80GB HBM3, 700 W; mmgt_tpu_torch/tools/
+//     k1_rows.py on throwaway copies, PERF.md): at the level-0 bank shape
+//     the K/V stream alone (consumers that only wait and release) takes
+//     0.218 ms and the work alone (no load after the ring's first fill)
+//     0.215 ms, of the whole call's 0.222-0.225 ms; without its 2^x the
+//     work takes 0.162 ms. So the stream of 80-byte key rows from L2, the
+//     products and the exponentials each nearly fill the time; the
+//     exponential floor (one 2^x a score at 16 a clock an SM) is 0.104 ms.
 //   * Head-dim padding: TMA fills columns past D with zeros, so the padding
 //     costs no device memory. Tiles are loaded as column boxes of one
 //     swizzle span each. d = 40 runs padded to 48 with a 32-byte swizzle
-//     (3 boxes); the 128-byte swizzle would pad it to 64 and add a third
-//     more tensor-core work. Both were timed on an NVIDIA H100 80GB HBM3
-//     at 700 W (mmgt_tpu_torch/tools/k1_swizzle.py, PERF.md): equal within
-//     1 % at the d = 40 shapes (0.266 against 0.265 ms at the level-0 bank
-//     shape), so the tensor cores do not bound a tile at d = 40. The
-//     48-column one is kept: its tiles take three quarters of the shared
-//     memory.
+//     (3 boxes); padding to 64 under the 128-byte swizzle (one box, a third
+//     more tensor-core work) timed 7-9 % slower, so the 48-column tiles
+//     are kept.
 //     d = 80 runs padded to 96 and d = 160 as is, both with a 64-byte
 //     swizzle (3 and 5 boxes).
 //   * Tiles: BQ = 128; BK = 128 for d <= 96 (S is 64 f32 registers a
-//     thread), 64 at d = 160 (O alone is 80). Shared memory: Q, then 3
-//     stages of K and V: 86 KB (d 48), 168 KB (96), 160 KB (160).
+//     thread, P's fragments 32), 64 at d = 160 (O alone is 80). Shared
+//     memory: Q, then 4 stages of K and V: 109 KB (d 48), 217 KB (96),
+//     201 KB (160).
 //
 // d = 512 (the VAE's single-head mid attention: 10 launches at (8, 4096, 1,
 // 512) in a flagship clip's decode, one at (1, 4096, 1, 512) for the
@@ -135,30 +145,58 @@ struct TmaParams {
   float scale_log2;
 };
 
+// 2^x as one MUFU.EX2 (exp2f without --use_fast_math adds a range fix-up
+// around it); results below 2^-126 flush to 0, 2^-inf is 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// keeps the compiler from reusing the registers of A fragments that an
+// asynchronous wgmma may still be reading (as fence_regs for accumulators)
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (*a)[4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
 template <int DP, int SW, int BK>
 struct TmaCfg {
-  static constexpr int SWC = SW / 2;         // columns of one box (one swizzle span)
-  static constexpr int NBOX = DP / SWC;      // boxes across the padded head dim
-  static constexpr int STAGES = 3;
-  static constexpr int QB = 64 * DP * 2;     // one consumer's Q tile, bytes
-  static constexpr int KB = BK * DP * 2;     // one K (or V) tile, bytes
+  static constexpr int SWC = SW / 2;       // columns of one box (one swizzle span)
+  static constexpr int NBOX = DP / SWC;    // boxes across the padded head dim
+  static constexpr int STAGES = 4;
+  static constexpr int QB = 64 * DP * 2;  // one consumer's Q tile, bytes
+  static constexpr int KB = BK * DP * 2;  // one K (or V) tile, bytes
   static constexpr int SMEM = 2 * QB + STAGES * 2 * KB + 8 * (2 * STAGES + 1) + 1024;
   static_assert(DP % SWC == 0 && DP % 16 == 0, "head dim pads to whole boxes");
+  static_assert(SMEM <= 232448, "shared memory");
 };
+
+// The two consumer warpgroups take turns issuing their products (named
+// barriers 1 and 2: warpgroup w waits on 1 + w and passes to the other), so
+// that one's exponentials overlap the other's wgmma.
+__device__ __forceinline__ void turn_wait(int wg) { named_sync(1 + wg, 256); }
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+}
 
 template <int DP, int SW, int BK>
 __global__ void __launch_bounds__(384, 1) flash_fwd_tma(const __grid_constant__ TmaParams p) {
   using C = TmaCfg<DP, SW, BK>;
+  constexpr int ST = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
   // swizzled tiles want 1024-byte aligned bases
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;
   const uint32_t sK = sQ + 2 * C::QB;
-  const uint32_t sV = sK + C::STAGES * C::KB;
-  const uint32_t bars = sV + C::STAGES * C::KB;
+  const uint32_t sV = sK + ST * C::KB;
+  const uint32_t bars = sV + ST * C::KB;
   auto full = [&](int s) { return bars + 8u * s; };
-  auto empty = [&](int s) { return bars + 8u * (C::STAGES + s); };
-  const uint32_t qbar = bars + 16u * C::STAGES;
+  auto empty = [&](int s) { return bars + 8u * (ST + s); };
+  const uint32_t qbar = bars + 16u * ST;
 
   const int q0 = blockIdx.x * 128, h = blockIdx.y, b = blockIdx.z;
   const Segments seg = segments(p.kv_lens, b, p.Ls, p.Lb);
@@ -166,7 +204,7 @@ __global__ void __launch_bounds__(384, 1) flash_fwd_tma(const __grid_constant__ 
   const int ntiles = tiles0 + (seg.n1 + BK - 1) / BK;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < C::STAGES; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), 8);  // one arrival per consumer warp
     }
@@ -181,14 +219,13 @@ __global__ void __launch_bounds__(384, 1) flash_fwd_tma(const __grid_constant__ 
     if (threadIdx.x == 256) {
       mbar_expect_tx(qbar, 2 * C::QB);
 #pragma unroll
-      for (int half = 0; half < 2; ++half)
+      for (int w = 0; w < 2; ++w)
 #pragma unroll
         for (int j = 0; j < C::NBOX; ++j)
-          tma_load(sQ + half * C::QB + j * 64 * SW, &p.tq, qbar, j * C::SWC, q0 + 64 * half, h,
-                   b);
+          tma_load(sQ + w * C::QB + j * 64 * SW, &p.tq, qbar, j * C::SWC, q0 + 64 * w, h, b);
       for (int t = 0; t < ntiles; ++t) {
-        const int st = t % C::STAGES;
-        mbar_wait(empty(st), ((t / C::STAGES) & 1) ^ 1);
+        const int st = t % ST;
+        mbar_wait(empty(st), ((t / ST) & 1) ^ 1);
         const bool bank = t >= tiles0;
         const int row = (bank ? t - tiles0 : t) * BK;
         const CUtensorMap* mk = bank ? &p.tkb : &p.tk;
@@ -214,79 +251,125 @@ __global__ void __launch_bounds__(384, 1) flash_fwd_tma(const __grid_constant__ 
     const float sl2 = p.scale_log2;
 
     mbar_wait(qbar, 0);
-    for (int t = 0; t < ntiles; ++t) {
-      const int st = t % C::STAGES;
-      const bool bank = t >= tiles0;
-      const int nk = bank ? min(BK, seg.n1 - (t - tiles0) * BK) : min(BK, seg.n0 - t * BK);
-      mbar_wait(full(st), (t / C::STAGES) & 1);
-
-      // S = Q K^T: 64 rows x BK keys per warpgroup
+    if (ntiles > 0) {
+      // S of one tile (register 4c + 2j + e is (row g + 8j, key 8c + 2q + e))
+      // and the previous tile's P as bf16 A fragments
       float s[BK / 2];
-      const uint32_t k_base = sK + st * C::KB;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        const int box = (16 * kk) / C::SWC, within = (16 * kk) % C::SWC;
-        wgmma_ss<BK>(s, make_desc<SW>(q_base + box * 64 * SW + within * 2, 16),
-                     make_desc<SW>(k_base + box * BK * SW + within * 2, 16), kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs<BK / 2>(s);
-
-      // mask the partial tile: register 4c + 2j + e is (row g + 8j, column 8c + 2q + e)
-      if (nk < BK) {
-#pragma unroll
-        for (int c = 0; c < BK / 8; ++c) {
-          const int col = 8 * c + 2 * (lane & 3);
-          if (col >= nk) { s[4 * c] = -INFINITY; s[4 * c + 2] = -INFINITY; }
-          if (col + 1 >= nk) { s[4 * c + 1] = -INFINITY; s[4 * c + 3] = -INFINITY; }
-        }
-      }
-      // online softmax in registers (log2 domain)
-      float alpha[2], mnew[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int c = 0; c < BK / 8; ++c) mx = fmaxf(mx, fmaxf(s[4 * c + 2 * j], s[4 * c + 2 * j + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        mnew[j] = fmaxf(m[j], mx * sl2);
-        alpha[j] = exp2f(m[j] - mnew[j]);
-        m[j] = mnew[j];
-      }
-      float rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int c = 0; c < BK / 8; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = e >> 1;
-          s[4 * c + e] = exp2f(fmaf(s[4 * c + e], sl2, -mnew[j]));
-          rs[j] += s[4 * c + e];
-        }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) l[j] = l[j] * alpha[j] + rs[j];
-#pragma unroll
-      for (int c = 0; c < DP / 8; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[4 * c + e] *= alpha[e >> 1];
       uint32_t a[BK / 16][4];
+      // wgmma descriptors: the high word is the same for every operand and
+      // the start address in the low word moves with the stage and the k
+      // step (a tile's offsets never carry out of its 14 bits), so each
+      // product's descriptor is one add
+      const uint32_t hi = (uint32_t)(make_desc<SW>(sQ, 16) >> 32);
+      const uint32_t q_lo = (uint32_t)make_desc<SW>(q_base, 16);
+      const uint32_t k_lo = (uint32_t)make_desc<SW>(sK, 16);
+      const uint32_t v_lo = (uint32_t)make_desc<SW>(sV, BK * SW);
+      auto desc = [&](uint32_t lo, uint32_t off) {
+        return ((uint64_t)hi << 32) | (lo + (off >> 4));
+      };
+      // S = Q K_t^T into acc: 64 rows x BK keys, Q and K K-major from
+      // shared memory
+      auto issue_s = [&](float* acc, int t) {
+        const uint32_t kt = k_lo + (t % ST) * (C::KB >> 4);
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) acc_to_a(a[kk], s + 8 * kk);
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const int box = (16 * kk) / C::SWC, within = (16 * kk) % C::SWC * 2;
+          wgmma_ss<BK>(acc, desc(q_lo, box * 64 * SW + within),
+                       desc(kt, box * BK * SW + within), kk > 0);
+        }
+        wgmma_commit();
+      };
+      // O += P V_t: P the register A operand, V the MN-major B operand
+      auto issue_pv = [&](int t) {
+        const uint32_t vt = v_lo + (t % ST) * (C::KB >> 4);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<DP>(o, a[kk], desc(vt, kk * 16 * SW));
+        wgmma_commit();
+      };
+      // the online softmax of tile t in x (log2 domain): only a segment's
+      // last, partial tile is masked (keys at or past its limit get -inf
+      // before the max); new row maxima, the factor alpha that brings O and
+      // l to them, P = 2^(x * scale * log2 e - m), the row sums into l
+      auto softmax = [&](float* x, int t, float* alpha) {
+        const int nk = t >= tiles0 ? seg.n1 - (t - tiles0) * BK : seg.n0 - t * BK;
+        if (nk < BK) {
+#pragma unroll
+          for (int c = 0; c < BK / 8; ++c) {
+            const int col = 8 * c + 2 * (lane & 3);
+            if (col >= nk) { x[4 * c] = -INFINITY; x[4 * c + 2] = -INFINITY; }
+            if (col + 1 >= nk) { x[4 * c + 1] = -INFINITY; x[4 * c + 3] = -INFINITY; }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int c = 0; c < BK / 8; ++c)
+            mx = fmaxf(mx, fmaxf(x[4 * c + 2 * j], x[4 * c + 2 * j + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float mnew = fmaxf(m[j], mx * sl2);
+          alpha[j] = ex2(m[j] - mnew);
+          m[j] = mnew;
+        }
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int c = 0; c < BK / 8; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            x[4 * c + e] = ex2(fmaf(x[4 * c + e], sl2, -m[e >> 1]));
+            rs[e >> 1] += x[4 * c + e];
+          }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) l[j] = l[j] * alpha[j] + rs[j];
+      };
+      auto to_frags = [&]() {
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) acc_to_a(a[kk], s + 8 * kk);
+      };
 
-      // O += P V: V is the MN-major B operand (keys x head dim)
-      const uint32_t v_base = sV + st * C::KB;
+      // Tile t's S = Q K_t^T is issued before tile t - 1's O += P V, and
+      // its softmax runs while that product is on the tensor cores; O is
+      // rescaled once the product has retired. First and last tiles are
+      // peeled, so every commit group is issued unconditionally.
+      float alpha[2];
+      if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
+      mbar_wait(full(0), 0);
+      turn_wait(wg);
       wgmma_fence();
-      fence_regs<DP / 2>(o);
+      issue_s(s, 0);
+      turn_pass(wg);
+      wgmma_wait<0>();
+      fence_regs<BK / 2>(s);
+      softmax(s, 0, alpha);  // O is 0: no rescale
+      to_frags();
+      for (int t = 1; t < ntiles; ++t) {
+        mbar_wait(full(t % ST), (t / ST) & 1);
+        turn_wait(wg);
+        wgmma_fence();
+        issue_s(s, t);
+        issue_pv(t - 1);
+        turn_pass(wg);
+        wgmma_wait<1>();  // S of tile t has landed
+        fence_regs<BK / 2>(s);
+        softmax(s, t, alpha);
+        wgmma_wait<0>();  // tile t - 1's product has read a[] and V
+        fence_frags<BK / 16>(a);
+        fence_regs<DP / 2>(o);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty((t - 1) % ST));
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<DP>(o, a[kk], make_desc<SW>(v_base + kk * 16 * SW, BK * SW));
-      wgmma_commit();
-      wgmma_wait_all();
+        for (int c = 0; c < DP / 8; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[4 * c + e] *= alpha[e >> 1];
+        to_frags();
+      }
+      turn_wait(wg);
+      wgmma_fence();
+      issue_pv(ntiles - 1);
+      if (wg == 0) turn_pass(wg);  // every wait has had its pass
+      wgmma_wait<0>();
       fence_regs<DP / 2>(o);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty(st));
     }
 
     // epilogue: O / l, bf16, straight from registers; rows past Sq are not stored

@@ -122,47 +122,50 @@ def wide_splits(b: int, h: int, sq: int, keys: int, sms: int) -> int:
 def _launch(q, k, v, kv_lens, k_bank, v_bank, scale, return_lse):
     global LAUNCHES
     b, sq, h, d = q.shape
-    ls = k.shape[1]
-    lb = 0 if k_bank is None else k_bank.shape[1]
-    tensors = [q, k, v] + ([k_bank, v_bank] if k_bank is not None else [])
-    for t in tensors:
-        if t.device != q.device or t.dtype != torch.bfloat16:
+    dev = q.device
+    # each tensor's shape, strides and address are read once: the host's
+    # time is most of a small call's wall time
+    shapes, strides, ptrs = [], [], []
+    for t in (q, k, v) if k_bank is None else (q, k, v, k_bank, v_bank):
+        shape, st = t.shape, t.stride()
+        if t.dtype != torch.bfloat16 or t.device != dev:
             raise ValueError("K1 takes bf16 CUDA tensors on one device")
-        if t.dim() != 4 or t.stride(-1) != 1 or t.shape[2] != h or t.shape[3] != d:
+        if len(shape) != 4 or st[3] != 1 or shape[2] != h or shape[3] != d:
             raise ValueError(f"K1 takes (B, S, {h}, {d}) tensors with unit last stride")
-    if k.shape[0] != b or v.shape[:2] != k.shape[:2]:
+        ptr = t.data_ptr()  # the kernel loads 16-byte vectors
+        if ptr % 16 or any(n > 1 and s_ % 8 for s_, n in zip(st[:3], shape[:3])):
+            raise ValueError("K1 takes 16-byte aligned tensors with strides a multiple of 8")
+        shapes.append(shape)
+        strides.append(st)
+        ptrs.append(ptr)
+    if shapes[1][0] != b or shapes[2][:2] != shapes[1][:2]:
         raise ValueError("self K/V must match the query batch")
-    if k_bank is not None and (k_bank.shape[0] != 1 or v_bank.shape[:2] != k_bank.shape[:2]):
+    if k_bank is not None and (shapes[3][0] != 1 or shapes[4][:2] != shapes[3][:2]):
         raise ValueError("the bank is batch 1, shared by every row")
     if d > 512 or d % 8:
         raise ValueError(f"K1 takes a head_dim <= 512 and a multiple of 8, got {d}")
-    for t in tensors:  # the kernel loads 16-byte vectors
-        if t.data_ptr() % 16 or any(st % 8 for st, n in zip(t.stride()[:3], t.shape[:3])
-                                    if n > 1):
-            raise ValueError("K1 takes 16-byte aligned tensors with strides a multiple of 8")
+    ls = shapes[1][1]
+    lb = 0 if k_bank is None else shapes[3][1]
     lens = None
     if kv_lens is not None:
-        lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
+        lens = kv_lens.to(device=dev, dtype=torch.int32).contiguous()
         if lens.shape != (b,):
             raise ValueError(f"kv_lens must be ({b},)")
-    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev) if return_lse else None
     nsplit = 1 if d <= 160 else wide_splits(
-        b, h, sq, ls + lb, torch.cuda.get_device_properties(q.device).multi_processor_count)
+        b, h, sq, ls + lb, torch.cuda.get_device_properties(dev).multi_processor_count)
     # the splits' f32 outputs and LSEs (csrc/flash_attn.cu, `WideParams::part`)
-    part = (torch.empty(nsplit * b * h * sq * (d + 1), dtype=torch.float32, device=q.device)
+    part = (torch.empty(nsplit * b * h * sq * (d + 1), dtype=torch.float32, device=dev)
             if nsplit > 1 else None)
-    kb = k_bank if k_bank is not None else k
-    vb = v_bank if v_bank is not None else v
+    if k_bank is None:  # the bank's strides are not read without a bank
+        ptrs += [0, 0]
+        strides += strides[1:3]
     lib = _build.load("flash_attn")
     rc = lib.mmgt_flash_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(k_bank), _build.ptr(v_bank),
-        _build.ptr(lens), o.data_ptr(), _build.ptr(lse), _build.ptr(part),
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        kb.stride(1), kb.stride(2), vb.stride(1), vb.stride(2),
-        o.stride(0), o.stride(1), o.stride(2),
+        *ptrs, _build.ptr(lens), o.data_ptr(), _build.ptr(lse), _build.ptr(part),
+        *strides[0][:3], *strides[1][:3], *strides[2][:3], *strides[3][1:3], *strides[4][1:3],
+        sq * h * d, h * d, d,  # o's strides: contiguous
         b, h, sq, ls, lb, d, nsplit, float(scale), _build.stream_ptr(q),
     )
     _build.check(lib, rc, "flash attention (K1)")

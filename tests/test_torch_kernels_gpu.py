@@ -44,21 +44,32 @@ def _check(got, want, ulps=2):
 # Sq = 300 and Lb = 257 end inside a tile of every variant (128 queries and
 # 128 or 64 keys for d <= 160, 64 and 64 for d > 160); kv_lens end inside a
 # self tile ([200, ...]), inside a bank tile (300 + 100) or at 0 (no key).
+# d <= 160: kv_lens at the key tiles' edges (1, BK - 1, BK, BK + 1, 2 BK + 1
+# with BK = 128, and 64 at d = 160) in the self segment and in the bank,
+# beside a row with no key, in one launch; Sq = 1, 65 and 129 leave the
+# second consumer warpgroup of the last query tile one row or none; d = 64
+# runs padded to 96.
 # At d > 160 each warpgroup takes 32 keys of a tile: 202 ends in the first
 # half of a self tile, 168 in the second, 400 and 557 inside bank tiles; a
 # batch of 2 is split over the keys (the wrapper's `wide_splits`), the
 # batch of 8 (one row per len) is not. d = 192 and 264 run the d = 512
 # path with the columns past d zero-filled (264: a partial 64-column box)
-@pytest.mark.parametrize("d,bank,lens", [
-    (40, True, [300, 557]), (40, True, [200, 400]), (80, False, [300, 150]),
-    (80, True, [130, 0]), (160, True, None), (160, True, [77, 450]), (512, False, None),
-    (512, True, [299, 0]), (512, True, [202, 400]), (512, True, [168, 557]),
-    (512, True, [300, 557, 0, 202, 168, 400, 64, 299]), (192, True, [202, 400]),
-    (264, False, None)])
-def test_flash_attention_kernel(gen, d, bank, lens):
+@pytest.mark.parametrize("d,bank,lens,sq", [
+    (40, True, [300, 557], 300), (40, True, [200, 400], 300), (80, False, [300, 150], 300),
+    (80, True, [130, 0], 300), (160, True, None, 300), (160, True, [77, 450], 300),
+    (512, False, None, 300), (512, True, [299, 0], 300), (512, True, [202, 400], 300),
+    (512, True, [168, 557], 300), (512, True, [300, 557, 0, 202, 168, 400, 64, 299], 300),
+    (192, True, [202, 400], 300), (264, False, None, 300),
+    (40, True, [1, 127, 128, 129, 257, 0], 300), (80, False, [1, 127, 128, 129, 257, 0], 300),
+    (160, True, [1, 63, 64, 65, 129, 0], 300),
+    (40, True, [301, 427, 428, 429, 557, 0], 300), (80, True, [301, 427, 428, 429, 557, 0], 300),
+    (160, True, [301, 363, 364, 365, 429, 0], 300),
+    (40, False, None, 1), (40, True, [557, 300], 65), (80, True, [1, 428], 129),
+    (160, True, [77, 450], 129), (64, False, [300, 150], 300), (64, True, [1, 429, 0], 65)])
+def test_flash_attention_kernel(gen, d, bank, lens, sq):
     s, h = 300, 2
     b = 2 if lens is None else len(lens)
-    q, k, v = _bf(gen, b, s, h, d), _bf(gen, b, s, h, d), _bf(gen, b, s, h, d)
+    q, k, v = _bf(gen, b, sq, h, d), _bf(gen, b, s, h, d), _bf(gen, b, s, h, d)
     kb = _bf(gen, 1, 257, h, d) if bank else None
     vb = _bf(gen, 1, 257, h, d) if bank else None
     kl = None if lens is None else torch.tensor(lens, device="cuda", dtype=torch.int32)
@@ -70,7 +81,7 @@ def test_flash_attention_kernel(gen, d, bank, lens):
     assert (lse - want_lse).abs().max().item() <= 1e-3
     if d in (192, 264):  # these rows split their keys over blocks
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        assert A.wide_splits(b, h, s, s + (257 if bank else 0), sms) > 1
+        assert A.wide_splits(b, h, sq, s + (257 if bank else 0), sms) > 1
     if lens is not None and 0 in lens:  # a row with no valid key gives 0
         assert got[lens.index(0)].abs().max().item() == 0
 
@@ -91,19 +102,26 @@ def test_flash_attention_kernel_packed_qkv(gen, d, bank):
     _check(got, want)
 
 
-# (1, 4096, 1, 512), the reference encode, splits its keys over 2 blocks
-# and combines them; (8, 4096, 1, 512), a decode chunk, does not
-@pytest.mark.parametrize("b", [1, 8])
-def test_flash_attention_kernel_deterministic_d512(gen, b):
-    """Two K1 calls at d = 512 on the same inputs are bitwise equal, with
-    the key split and its fixed-order combine and without."""
-    q, k, v = (_bf(gen, b, 4096, 1, 512) for _ in range(3))
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    assert (A.wide_splits(b, 1, 4096, 4096, sms) > 1) == (b == 1)
-    first, lse1 = A.flash_attention(q, k, v, return_lse=True)
-    second, lse2 = A.flash_attention(q, k, v, return_lse=True)
+# d <= 160: the bank form with kv_lens, many key tiles; (1, 4096, 1, 512),
+# the reference encode, splits its keys over 2 blocks and combines them;
+# (8, 4096, 1, 512), a decode chunk, does not
+@pytest.mark.parametrize("d,b", [(40, 2), (80, 2), (160, 2), (512, 1), (512, 8)])
+def test_flash_attention_kernel_deterministic(gen, d, b):
+    """Two K1 calls on the same inputs are bitwise equal, output and LSE."""
+    kb = vb = kl = None
+    if d <= 160:
+        s, h = 1000, 4
+        q, k, v = (_bf(gen, b, s, h, d) for _ in range(3))
+        kb, vb = _bf(gen, 1, s, h, d), _bf(gen, 1, s, h, d)
+        kl = torch.tensor([s, 2 * s - 77], device="cuda", dtype=torch.int32)
+    else:
+        q, k, v = (_bf(gen, b, 4096, 1, 512) for _ in range(3))
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        assert (A.wide_splits(b, 1, 4096, 4096, sms) > 1) == (b == 1)
+    first, lse1 = A.flash_attention(q, k, v, kl, kb, vb, return_lse=True)
+    second, lse2 = A.flash_attention(q, k, v, kl, kb, vb, return_lse=True)
     assert torch.equal(first, second) and torch.equal(lse1, lse2)
-    want, want_lse = A.attention_plain(q, k, v, return_lse=True)
+    want, want_lse = A.attention_plain(q, k, v, kl, kb, vb, return_lse=True)
     _check(first, want)
     assert (lse1 - want_lse).abs().max().item() <= 1e-3
 
