@@ -23,8 +23,10 @@ Phases, in order; any failure exits non-zero:
      largest output), K3 at the level-0 q/k/v,
      level-0 GEGLU and level-2 audio-q shapes and in its tiled regime
      (K >= 640) at the level-1 q/k/v, GEGLU and audio q, the level-2 GEGLU
-     and K4's W_o + residual at levels 1 and 3 (two tiled calls bitwise
-     equal), K1 at d = 192 and 264 (the d = 512 path, keys split), K4 at
+     and K4's W_o + residual at levels 1 and 3, and K3's level-0 audio q
+     and K4's level-0 W_o + residual (every row with gamma, beta and the
+     biases in bf16 and in f32, two calls bitwise equal, the host's us a
+     call), K1 at d = 192 and 264 (the d = 512 path, keys split), K4 at
      levels 0, 1 and 3, K5
      at the level-1, level-2 and mid bank-concat and level-0 audio
      self-attention shapes (every K5 shape timed against SDPA's backward);
@@ -583,14 +585,17 @@ def check_k2(torch, N):
 
 
 def check_k3(torch, L):
-    """K3 against its plain version at every row of `tools/k3_rows.ROWS`;
-    every row timed with its bound and the library call (F.linear of
-    F.layer_norm, or torch.addmm for K4's W_o rows), with the plan's
-    regime; two calls of the tiled regime bitwise equal."""
-    from mmgt_tpu_torch.tools.k3_rows import ROWS, case
+    """K3 against its plain version at every row of `tools/k3_rows.ROWS`,
+    with gamma, beta and the biases in bf16 (as the model holds them) and
+    in f32; two calls bitwise equal in both regimes; every row timed with
+    its bound and the library call (F.linear of F.layer_norm, or
+    torch.addmm for K4's W_o rows), with the plan's regime, and the host's
+    microseconds a call (the wrapper, its C entry, the bare ctypes call)."""
+    from mmgt_tpu_torch.ops import _build
+    from mmgt_tpu_torch.tools.k3_rows import ROWS, case, host_breakdown
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    rec, rows = None, {}
+    rec, rows, host = None, {}, {}
     for row in ROWS:
         name = f"{row[0]} {row[1]}"
         cs = case(torch, L, row, g)
@@ -601,18 +606,27 @@ def check_k3(torch, L):
         plan = L.gemm_plan(cs["m"], cs["k"], cs["ns"])
         log(f"K3 {name}: max_abs_err {err:.3e} (tol {tol:.3e}, 2 bf16 ulps), {plan['regime']}")
         require(math.isfinite(err) and err <= tol, f"K3 {name}: err {err} > {tol}")
-        if plan["regime"] == "tiled":
-            again = fn()
-            require(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
-                    f"K3 {name}: two calls differ")
+        again = fn()
+        require(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+                f"K3 {name}: two calls differ")
+        del again
+        f32, want32 = cs["fn_f32"](), cs["plain_f32"]()
+        err32 = max(max_err(a, b_) for a, b_ in zip(f32, want32))
+        tol32 = max(ulp_tol(w_) for w_ in want32)
+        require(math.isfinite(err32) and err32 <= tol32,
+                f"K3 {name}, f32 gamma/beta/bias: err {err32} > {tol32}")
+        del f32, want32
         row = time_row(fn, cs["plain"], cs["lib"], cs["flops"], cs["in_bytes"] + nbytes(*got),
                        f"{name}: {cs['label']}; {plan['regime']}")
         row["max_abs_err"] = err
         rows[name] = row
+        host[name] = {k: round(v, 1) for k, v in host_breakdown(torch, _build, fn).items()}
         if rec is None:
             rec = dict(row, rows=rows)
         del cs, fn, got, want
         torch.cuda.empty_cache()
+    log("K3 host us a call (the wrapper, its C entry, the bare ctypes call): "
+        + json.dumps(host))
     return rec
 
 
@@ -868,6 +882,7 @@ def run_profile(torch, Pose2VideoPipeline):
     wall_ms = (time.perf_counter() - t0) * 1e3
     report_profile(step, "one denoise step, 2 windows x CFG = 48 frame rows, 512x512", wall_ms)
     report_k2_calls(torch, step)
+    report_k3_calls(torch, step)
     del cond
     # the VAE decode chunk (tools/profile_vae.py's subject): 8 frames of
     # 64^2 latents to 512^2
@@ -2881,6 +2896,44 @@ def report_k2_calls(torch, step):
     moved = sum(2 * math.prod(shape) * es for shape, _, _, es in calls)
     log(json.dumps({"k2_calls": {"calls": len(calls), "bytes_moved": moved,
                                  "bound_ms": moved / PEAK_BYTES * 1e3, "plans": regimes}}))
+
+
+def report_k3_calls(torch, step):
+    """K3's launches in one more `step` (`ln_gemm`, K4's W_o included):
+    each distinct (M, K, weight columns, LayerNorm, bias, residual) with its
+    count, regime and bound (each input read once, each output written
+    once)."""
+    from mmgt_tpu_torch.ops import fused_ln as L
+    from mmgt_tpu_torch.ops import motion_attention as M
+
+    calls, plain = {}, L.ln_gemm
+
+    def recording(x2, gamma, beta, ws, bs, eps=1e-5, res=None):
+        m, k = x2.shape
+        ns = tuple(w.shape[0] for w in ws)
+        key = (m, k, ns, gamma is not None, any(b is not None for b in bs), res is not None)
+        calls[key] = calls.get(key, 0) + 1
+        return plain(x2, gamma, beta, ws, bs, eps, res=res)
+
+    L.ln_gemm = M.ln_gemm = recording
+    try:
+        step()
+    finally:
+        L.ln_gemm = M.ln_gemm = plain
+    rows = []
+    by_size = sorted(calls.items(), key=lambda kv: -kv[0][0] * sum(kv[0][2]))
+    for (m, k, ns, ln, bias, res), n in by_size:
+        moved = 2 * (m * k + k * sum(ns) + m * sum(ns) * (2 if res else 1)
+                     + (2 * k if ln else 0) + (sum(ns) if bias else 0))
+        bms, by = bound_ms(2.0 * m * k * sum(ns), moved)
+        rows.append({"m": m, "k": k, "ns": list(ns), "layernorm": ln, "bias": bias,
+                     "residual": res, "launches": n,
+                     "regime": L.gemm_plan(m, k, list(ns))["regime"], "bound_ms": bms,
+                     "bound_by": by})
+    by_regime = {}
+    for r in rows:
+        by_regime[r["regime"]] = by_regime.get(r["regime"], 0) + r["launches"]
+    log(json.dumps({"k3_calls": {"launches": by_regime, "rows": rows}}))
 
 
 # ------------------------------------------------------------------- mesh

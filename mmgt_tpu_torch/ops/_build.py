@@ -49,8 +49,8 @@ SIGNATURES = {
         "mmgt_gn_max_clusters": [INT] * 4 + [VP],
     },
     "ln_proj": {
-        "mmgt_ln_gemm": [VP] * 3 + [INT] * 2 + [FLT, INT] + [VP] * 3 + [INT] * 3 + [VP] * 10
-        + [INT] * 4 + [VP],
+        "mmgt_ln_gemm": [VP] * 3 + [INT] * 2 + [FLT] + [INT] * 3 + [VP] * 3 + [INT] * 3
+        + [VP] * 10 + [INT] * 5 + [VP],
     },
     "motion_attn": {
         "mmgt_ln_pe": [VP] * 5 + [LL] + [INT] * 3 + [FLT, VP],

@@ -9,21 +9,30 @@ normalised row rounded to the weight dtype, f32 accumulation and bias).
 K3 (csrc/ln_proj.cu) replaces the TPU kernel
 mmgt_tpu/ops/fused_ln.py:_ln_proj_kernel with one call for all weights,
 in one of two regimes chosen by K (`gemm_plan`, checked by the C entry):
-  * stripe (K <= 576): each block loads a 128-row stripe of x once by TMA,
-    normalises it in shared memory, and runs it against every weight tile
-    (streamed through a TMA ring) on wgmma; one launch, and the normalised
-    tensor never reaches device memory;
-  * tiled (K >= 640, any K): a LayerNorm pre-pass (one warp a row, f32
+  * stripe (K <= 320, every level-0 width): persistent blocks, one an SM, walk (128-row stripe,
+    N split) items. One thread loads the next item's stripe by TMA and
+    streams the weight tiles through a ring; three warps normalise the
+    stripe in shared memory while the consumers work on the previous item;
+    each consumer warpgroup takes its 64 normalised rows into registers
+    (wgmma's A fragments) and runs every weight tile from them, two
+    accumulators taking turns so that each tile's epilogue (the bias from
+    a shared f32 table, K4's residual, a swizzled staging tile stored by
+    TMA) runs under the next tile's products. One launch; x is read once
+    and the normalised tensor never reaches device memory;
+  * tiled (K > 320, any K; the paths' K >= 640): a LayerNorm pre-pass (one warp a row, f32
     statistics, the normalised row rounded to bf16 into an (M, K) scratch
     that `ln_gemm` allocates), then persistent blocks walk 128 x 256 output
     tiles, x and the weights streamed through a TMA ring in 64-column
     chunks; the two 128-column units of a tile may belong to different
     weights.
-The epilogue adds the f32 bias (and K4's residual). What bounds it: at
-K = 320 the bytes (x, the outputs); at K >= 640 the operations, which the
-tiled GEMM feeds at about 47 bytes of x and weights from L2 a clock an
-SM, with the tensor cores idle through each tile's epilogue; its
-pre-pass moves x twice more.
+gamma, beta and the biases are read as the model holds them, bf16 or f32,
+and widened to f32 in registers: no cast runs on the host path (other
+dtypes raise). What
+bounds it: at K = 320 the consumers' issue (the epilogue's work for each
+output element beside the products; PERF.md), not the bytes; at K >= 640
+the operations, which the tiled GEMM feeds at about 47 bytes of x and
+weights from L2 a clock an SM, with the tensor cores idle through each
+tile's epilogue; its pre-pass moves x twice more.
 
 On a CPU tensor `ln_projections` runs `ln_projections_plain`; on a CUDA
 tensor it launches K3 or raises. Gradients (x, gamma, beta, each weight and
@@ -59,103 +68,134 @@ def ln_projections_plain(x, gamma, beta, ws, bs, eps: float = 1e-5):
     return tuple(outs)
 
 
-# K3's tile plans (csrc/ln_proj.cu). Stripe: a block holds a stripe of 128
-# rows of x (all K columns) and a ring of 160 x 64 weight tiles. Tiled:
-# persistent blocks walk 128 x 256 output tiles through a ring of (128 x 64
-# x box, two 128 x 64 weight boxes) stages.
+# K3's tile plans (csrc/ln_proj.cu). Stripe: persistent blocks walk
+# (128-row stripe, N split) items; each consumer warpgroup holds its 64 rows
+# of the normalised stripe as register A fragments against BN x 64 weight
+# tiles streamed through a ring. Tiled: persistent blocks walk 128 x 256
+# output tiles through a ring of (128 x 64 x box, two 128 x 64 weight boxes)
+# stages.
 SMEM_LIMIT = 232448      # 227 KB a block on the H100
 SMS = 132                # streaming multiprocessors of the H100
 BM = 128                 # rows of a stripe or a tile
-BN = 160                 # output columns of a stripe tile
+STRIPE_MAX_K = 320       # the stripe: up to 5 64-column chunks of A fragments in registers
+STRIPE_BN = 80           # output columns of a stripe tile
 UNIT = 128               # output columns of a tiled unit (one weight's box)
-MAX_STAGES = 8
+MAX_STAGES = 16
+STG_BUFS = 2             # staging tiles a consumer warpgroup (stripe)
 TILED_STAGE = BM * 128 + 2 * UNIT * 128   # bytes of one tiled ring stage
 TILED_STAGES = 4
 
 
 def gemm_smem(regime: str, k: int, stages: int) -> int:
     """Shared-memory bytes of a K3 block (as `stripe_smem` and `tiled_smem`
-    in csrc/ln_proj.cu): 1024 of alignment slack; stripe: the stripe, the
-    two consumer warpgroups' 64 x 160 bf16 staging tiles, the weight ring
-    and the mbarriers; tiled: the ring, two 64 x 128 staging tiles and the
-    mbarriers (K plays no part)."""
+    in csrc/ln_proj.cu): 1024 of alignment slack; stripe: the 128-row x
+    stripe (K rounded up to 64 columns), four 64 x BN bf16 staging tiles
+    (two a consumer warpgroup), the weight ring, gamma and beta in f32 and
+    the mbarriers (`gemm_plan` adds the bias table); tiled: the ring, two
+    64 x 128 staging tiles and the mbarriers (K plays no part)."""
     if regime == "stripe":
-        return (1024 + -(-k // 64) * BM * 128 + 2 * 64 * BN * 2 + stages * BN * 128
-                + 8 * (2 * stages + 3))
+        kc = -(-k // 64)
+        return (1024 + kc * BM * 128 + 2 * STG_BUFS * 64 * STRIPE_BN * 2
+                + stages * STRIPE_BN * 128 + kc * 64 * 8 + 8 * (2 * stages + 5))
     if regime == "tiled":
         return 1024 + stages * TILED_STAGE + 2 * 64 * UNIT * 2 + 8 * (2 * stages + 2)
     raise ValueError(f"K3 has no regime {regime!r}")
 
 
-def gemm_plan(m: int, k: int, ns: Sequence[int]) -> dict:
-    """K3's plan for x (m, k) against weights of ns[i] output columns.
+def gemm_plan(m: int, k: int, ns: Sequence[int], bias: bool = False) -> dict:
+    """K3's plan for x (m, k) against weights of ns[i] output columns, with
+    a bias on any of them or not.
 
-    Stripe, where a 128-row stripe of all K columns leaves room for a ring
-    of at least two 160-column weight tiles (K <= 576): as many ring stages
-    as fit (up to 8), and the N tiles split over enough blocks a stripe to
-    give two waves of 132 SMs. Tiled otherwise (K >= 640, any K): 128 x 256
-    tiles of two 128-column units (units of different weights may share a
-    tile), a ring of 4 stages, min(tiles, 132) persistent blocks. Keys:
-    regime, bm, bn (rows and columns of a block's tile), stages, split
-    (stripe: blocks a stripe; tiled: persistent blocks), smem, stripes (row
-    stripes or row tiles), tiles (stripe: N tiles a stripe; tiled: tiles in
-    all), units (tiled), cols (the output columns the kernel computes,
-    padded). Raises where the kernel cannot take the shape. The result is
-    cached and shared: do not modify it."""
-    return _gemm_plan(m, k, tuple(ns))
+    Stripe for K <= 320: 80-column tiles, as many ring stages
+    as fit (up to 16) beside an f32 table of the biases (`cols` floats,
+    where there is a bias); where the stripes alone leave SMs idle, the N
+    tiles are split over that many more items a stripe; min(items, 132)
+    persistent blocks. Tiled otherwise (K > 320, any K): 128 x 256 tiles
+    of two 128-column units (units of different weights may share a tile),
+    a ring of 4 stages, min(tiles, 132) persistent blocks. Keys: regime,
+    bm, bn (rows and columns of a block's tile), stages, split (stripe: N
+    splits a stripe; tiled: 1), blocks (persistent blocks), smem, stripes
+    (row stripes or row tiles), tiles (stripe: N tiles a stripe; tiled:
+    tiles in all), items (stripe), units (tiled), cols (the output columns
+    the kernel computes, padded). Raises where the kernel cannot take the
+    shape. The result is cached and shared: do not modify it."""
+    return _gemm_plan(m, k, tuple(ns), bool(bias))
 
 
 @functools.lru_cache(maxsize=None)
-def _gemm_plan(m: int, k: int, ns: Tuple[int, ...]) -> dict:
+def _gemm_plan(m: int, k: int, ns: Tuple[int, ...], bias: bool) -> dict:
     if k <= 0 or k % 8 != 0:
         raise ValueError(f"K3 takes K % 8 == 0, got K = {k}")
     if not 1 <= len(ns) <= 3 or any(n <= 0 or n % 8 != 0 for n in ns):
         raise ValueError(f"K3 takes 1-3 weights with N % 8 == 0, got {list(ns)}")
     stripes = max(1, -(-m // BM))
-    stages = min(MAX_STAGES, (SMEM_LIMIT - gemm_smem("stripe", k, 0)) // (BN * 128 + 16))
-    if stages >= 2:
-        tiles = sum(-(-n // BN) for n in ns)
-        nsplit = min(tiles, max(1, -(-2 * SMS // stripes)))
-        return dict(regime="stripe", bm=BM, bn=BN, stages=stages, split=nsplit,
-                    smem=gemm_smem("stripe", k, stages), stripes=stripes, tiles=tiles,
-                    cols=tiles * BN)
+    if k <= STRIPE_MAX_K:
+        bn = STRIPE_BN
+        tiles = sum(-(-n // bn) for n in ns)
+        table = 4 * tiles * bn if bias else 0
+        stages = min(MAX_STAGES,
+                     (SMEM_LIMIT - gemm_smem("stripe", k, 0) - table) // (bn * 128 + 16))
+        if stages < 2:
+            raise ValueError(f"K3: a bias table of {tiles * bn} columns leaves no ring at K = {k}")
+        split = 1 if stripes >= SMS else min(tiles, SMS // stripes)
+        items = stripes * split
+        return dict(regime="stripe", bm=BM, bn=bn, stages=stages, split=split,
+                    blocks=min(items, SMS), smem=gemm_smem("stripe", k, stages) + table,
+                    stripes=stripes, tiles=tiles, items=items, cols=tiles * bn)
     units = sum(-(-n // UNIT) for n in ns)
     ntiles = -(-units // 2)
     tiles = stripes * ntiles
-    return dict(regime="tiled", bm=BM, bn=2 * UNIT, stages=TILED_STAGES, split=min(tiles, SMS),
-                smem=gemm_smem("tiled", k, TILED_STAGES), stripes=stripes, tiles=tiles,
-                units=units, cols=ntiles * 2 * UNIT)
+    return dict(regime="tiled", bm=BM, bn=2 * UNIT, stages=TILED_STAGES, split=1,
+                blocks=min(tiles, SMS), smem=gemm_smem("tiled", k, TILED_STAGES),
+                stripes=stripes, tiles=tiles, units=units, cols=ntiles * 2 * UNIT)
+
+
+def _is_bf16(ts, what: str) -> int:
+    """Whether the vectors (gamma and beta, or the biases), which the kernel
+    reads as they are, are bf16 (else f32); raises unless they are
+    contiguous, 16-byte aligned and all bf16 or all f32."""
+    dt = ts[0].dtype
+    if dt not in (torch.bfloat16, torch.float32) or not all(
+            t.dtype == dt and t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ts):
+        raise ValueError(f"K3 reads {what} as contiguous, 16-byte aligned bf16 or f32 "
+                         f"vectors of one dtype")
+    return int(dt == torch.bfloat16)
 
 
 def ln_gemm(x2, gamma, beta, ws, bs, eps: float = 1e-5, res=None):
     """One call of csrc/ln_proj.cu on a bf16 (M, K) matrix: the LayerNorm
-    of each row (gamma, beta f32) when `gamma` is given, else x as it is;
-    the bias (cast to f32 here where it is not) and an optional bf16
-    residual in the epilogue. Shared by K3 and K4; it does not count
-    launches itself."""
+    of each row when `gamma` is given, else x as it is; the bias and an
+    optional bf16 residual in the epilogue. gamma, beta and the biases are
+    read as they are: contiguous bf16 or f32, one dtype for gamma and beta
+    and one for the biases. Shared by K3 and K4; it does not count launches
+    itself."""
     m, k = x2.shape
     nw = len(ws)
     if not x2.is_contiguous() or x2.dtype != torch.bfloat16:
         raise ValueError("the GEMM takes a contiguous bf16 (M, K) input")
+    ns = []
     for w in ws:
         if w.dtype != torch.bfloat16 or w.dim() != 2 or w.shape[1] != k or not w.is_contiguous():
             raise ValueError(f"weights must be contiguous bf16 (N, {k})")
-    plan = gemm_plan(m, k, [w.shape[0] for w in ws])
-    res = list(res) if res is not None else [None] * nw
-    outs = [torch.empty((m, w.shape[0]), device=x2.device, dtype=torch.bfloat16) for w in ws]
-    bias = [None if b is None else b.float().contiguous() for b in bs]
+        ns.append(w.shape[0])
+    given = [b for b in bs if b is not None]
+    plan = gemm_plan(m, k, ns, bool(given))
+    ln_bf16 = _is_bf16([gamma, beta], "gamma and beta") if gamma is not None else 0
+    bias_bf16 = _is_bf16(given, "the biases") if given else 0
+    tiled = plan["regime"] == "tiled"
+    dev = x2.device
+    outs = [torch.empty((m, n), device=dev, dtype=torch.bfloat16) for n in ns]
     # the tiled regime's LayerNorm pre-pass writes the normalised x here
-    xn = torch.empty_like(x2) if plan["regime"] == "tiled" and gamma is not None else None
-    pad = lambda seq: list(seq) + [None] * (3 - nw)
-    w3, b3, r3, o3 = pad(ws), pad(bias), pad(res), pad(outs)
-    n3 = [w.shape[0] for w in ws] + [0] * (3 - nw)
+    xn = torch.empty_like(x2) if tiled and gamma is not None else None
+    ptr, pad = _build.ptr, [0] * (3 - nw)
+    res = res if res is not None else ()
     lib = _build.load("ln_proj")
     rc = lib.mmgt_ln_gemm(
-        x2.data_ptr(), _build.ptr(gamma), _build.ptr(beta), m, k, float(eps), nw,
-        *[_build.ptr(t) for t in w3], *n3,
-        *[_build.ptr(t) for t in b3], *[_build.ptr(t) for t in r3],
-        *[_build.ptr(t) for t in o3], _build.ptr(xn), int(plan["regime"] == "tiled"),
-        plan["stages"], plan["split"], plan["smem"], _build.stream_ptr(x2),
+        x2.data_ptr(), ptr(gamma), ptr(beta), m, k, float(eps), nw, ln_bf16, bias_bf16,
+        *[w.data_ptr() for w in ws], *pad, *ns, *pad,
+        *[ptr(b) for b in bs], *pad, *[ptr(r) for r in res], *[0] * (3 - len(res)),
+        *[o.data_ptr() for o in outs], *pad, ptr(xn), int(tiled),
+        plan["stages"], plan["split"], plan["blocks"], plan["smem"], _build.stream_ptr(x2),
     )
     _build.check(lib, rc, "LN-projection GEMM")
     return outs
@@ -167,8 +207,7 @@ def _launch(x, gamma, beta, ws, bs, eps):
     x2 = x.reshape(-1, c)
     if not x2.is_contiguous() or x2.dtype != torch.bfloat16:
         raise ValueError("K3 takes a contiguous bf16 input")
-    outs = ln_gemm(x2, gamma.float().contiguous(), beta.float().contiguous(), list(ws),
-                   list(bs), eps)
+    outs = ln_gemm(x2, gamma, beta, ws, bs, eps)
     LAUNCHES += 1
     return tuple(o.reshape(*x.shape[:-1], o.shape[-1]) for o in outs)
 

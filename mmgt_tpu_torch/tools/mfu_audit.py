@@ -23,8 +23,9 @@ ways:
         few blocks splits a row's key tiles over 2-4 blocks, the same
         tiles). It skips the bank keys of the CFG-uncond rows, which the
         plain version computes and masks;
-      - K3 (`csrc/ln_proj.cu`) runs whole stripes of 128 or 64 rows
-        against 160-column weight tiles over 64-column K chunks
+      - K3 (`csrc/ln_proj.cu`) runs 128-row stripes against 80-column
+        weight tiles (K <= 320), or 128 x 256 tiles of two 128-column
+        weight units (K > 320), over 64-column K chunks
         (`ops/fused_ln.py:gemm_plan`);
       - K4 (`csrc/motion_attn.cu`): kernel A runs its q/k/v products on
         blocks of RP rows (F x Lt of them used) and the frame attention on
@@ -102,8 +103,8 @@ def k1_executed(sq: int, heads: int, d: int, ls: int, lb: int, kv_lens: Iterable
 def k3_executed(m: int, k: int, ns: Sequence[int]) -> int:
     """K3's FLOPs for x (m, k) against weights of ns output columns, as
     `gemm_plan` tiles it: 128-row stripes (or row tiles) x the plan's padded
-    columns (160-column tiles a weight, or 256-column tiles of two
-    128-column units) x 64-column K chunks."""
+    columns (80-column tiles a weight at K <= 320, else 256-column tiles
+    of two 128-column units) x 64-column K chunks."""
     from mmgt_tpu_torch.ops.fused_ln import gemm_plan
 
     plan = gemm_plan(m, k, list(ns))

@@ -320,6 +320,90 @@ def test_ln_projections_kernel_deterministic(gen, m, k, outs):
     assert all(torch.equal(a, c) for a, c in zip(first, second))
 
 
+# K3's stripe regime (K <= 320): persistent blocks over (128-row stripe, N
+# split) items, each consumer warpgroup's 64 rows of the normalised stripe
+# held as register A fragments against 80-column weight tiles. K = 64 and
+# 320, and 512 and 576 (the tiled regime, which takes K > 320); N = 80, 160,
+# 320, 3 x 320 and 2560; the single projections with a bias, q/k/v without
+@pytest.mark.parametrize("k", [64, 320, 512, 576])
+@pytest.mark.parametrize("outs", [[80], [160], [320], [320, 320, 320], [2560]])
+def test_ln_projections_kernel_k_le_576(gen, k, outs):
+    m = 333
+    bias = len(outs) == 1
+    x = _bf(gen, m, k)
+    g, b = 1 + _bf(gen, k, scale=0.1), _bf(gen, k, scale=0.1)
+    ws = [_bf(gen, n, k, scale=1 / math.sqrt(k)) for n in outs]
+    bs = [_bf(gen, n, scale=0.1) if bias else None for n in outs]
+    assert L.gemm_plan(m, k, outs)["regime"] == ("stripe" if k <= 320 else "tiled")
+    before = L.LAUNCHES
+    got = L.ln_projections(x, g, b, ws, bs)
+    assert L.LAUNCHES == before + 1
+    for gg, want in zip(got, L.ln_projections_plain(x, g, b, ws, bs)):
+        _check(gg, want)
+
+
+# M off the 128-row stripe (77: one partial stripe; 333; 8192 + 40: 65
+# stripes, the last of 40 rows, split over the card) with x far from a zero
+# mean (K = 576: the tiled regime)
+@pytest.mark.parametrize("m", [77, 333, 8192 + 40])
+@pytest.mark.parametrize("k", [64, 320, 576])
+def test_ln_projections_kernel_stripe_rows(gen, m, k):
+    x = (_bf(gen, m, k).float() + 20.0).to(torch.bfloat16)
+    g, b = 1 + _bf(gen, k, scale=0.1), _bf(gen, k, scale=0.1)
+    ws = [_bf(gen, 320, k, scale=1 / math.sqrt(k)) for _ in range(3)]
+    bs = [_bf(gen, 320, scale=0.1) for _ in range(3)]
+    for gg, want in zip(L.ln_projections(x, g, b, ws, bs), L.ln_projections_plain(x, g, b, ws, bs)):
+        _check(gg, want)
+
+
+# gamma, beta and the biases as the caller holds them, bf16 or f32, read
+# without a cast in both regimes
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [320, 576, 640])
+def test_ln_projections_kernel_param_dtypes(gen, dtype, k):
+    x = _bf(gen, 333, k)
+    g, b = (1 + _bf(gen, k, scale=0.1)).to(dtype), _bf(gen, k, scale=0.1).to(dtype)
+    ws = [_bf(gen, n, k, scale=1 / math.sqrt(k)) for n in (320, 160)]
+    bs = [_bf(gen, n, scale=0.1).to(dtype) for n in (320, 160)]
+    for gg, want in zip(L.ln_projections(x, g, b, ws, bs), L.ln_projections_plain(x, g, b, ws, bs)):
+        _check(gg, want)
+
+
+@pytest.mark.parametrize("outs,bias", [([320, 320, 320], False), ([2560], True)])
+def test_ln_projections_kernel_stripe_deterministic(gen, outs, bias):
+    """Two K3 calls on the same inputs are bitwise equal (stripe regime,
+    K = 320, 65 stripes split over the card)."""
+    m, k = 8192 + 40, 320
+    x = _bf(gen, m, k)
+    g, b = 1 + _bf(gen, k, scale=0.1), _bf(gen, k, scale=0.1)
+    ws = [_bf(gen, n, k, scale=1 / math.sqrt(k)) for n in outs]
+    bs = [_bf(gen, n, scale=0.1) if bias else None for n in outs]
+    first = L.ln_projections(x, g, b, ws, bs)
+    second = L.ln_projections(x, g, b, ws, bs)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+@pytest.mark.parametrize("k,w_o", [(64, False), (320, False), (320, True)])
+def test_ln_projections_stripe_launches_one_kernel(gen, k, w_o):
+    """A K <= 320 call (bf16 gamma, beta and biases as the model holds
+    them) is one kernel on the card: no cast, no pre-pass."""
+    x = _bf(gen, 1000, k)
+    g, b = 1 + _bf(gen, k, scale=0.1), _bf(gen, k, scale=0.1)
+    ws = [_bf(gen, 320, k, scale=1 / math.sqrt(k)) for _ in range(1 if w_o else 3)]
+    bs = [_bf(gen, 320, scale=0.1) for _ in ws]
+    res = [_bf(gen, 1000, 320)] if w_o else None
+    call = (lambda: L.ln_gemm(x, None, None, ws, bs, res=res)) if w_o else \
+        (lambda: L.ln_projections(x, g, b, ws, bs))
+    call()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages() if e.device_time_total > 0]
+    assert len(kernels) == 1 and kernels[0][1] == 1, kernels
+    assert "ln_gemm_stripe" in kernels[0][0], kernels
+
+
 @pytest.mark.parametrize("m,k,n", [(333, 320, 320), (1000, 640, 640), (200, 1280, 1280),
                                    (333, 1408, 200)])
 def test_gemm_residual_epilogue(gen, m, k, n):

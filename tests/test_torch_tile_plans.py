@@ -6,6 +6,7 @@ gets a plan that fits 227 KB of shared memory, and a shape that cannot fit
 raises before any launch. The C entries check the same plan
 (csrc/group_norm.cu, csrc/ln_proj.cu, csrc/motion_attn.cu), so a plan that
 passes here is the one the card runs."""
+import itertools
 import math
 
 import pytest
@@ -45,50 +46,70 @@ def _k3_shapes(chans, tokens):
 @pytest.mark.parametrize("config", sorted(WIDTHS))
 def test_k3_plan_fits_every_path_shape(config):
     chans, tokens = WIDTHS[config]
-    for m, k, ns in _k3_shapes(chans, tokens):
-        plan = L.gemm_plan(m, k, ns)
+    for (m, k, ns), bias in itertools.product(_k3_shapes(chans, tokens), (False, True)):
+        plan = L.gemm_plan(m, k, ns, bias)
         assert plan["bm"] == 128 and plan["stripes"] == -(-m // 128)
         assert 2 <= plan["stages"] <= L.MAX_STAGES
-        assert plan["smem"] == L.gemm_smem(plan["regime"], k, plan["stages"]) <= SMEM
+        # the stripe keeps an f32 table of the biases, tile-padded, beside its ring
+        table = 4 * plan["cols"] if bias and plan["regime"] == "stripe" else 0
+        assert plan["smem"] == L.gemm_smem(plan["regime"], k, plan["stages"]) + table <= SMEM
+        # persistent blocks, one an SM at most
+        assert 1 <= plan["blocks"] <= L.SMS
         if plan["regime"] == "stripe":
-            # the whole-K stripe fits beside the ring, as deep as the budget allows
-            assert k <= 576 and plan["bn"] == 160
+            # (stripe, N split) items; the ring as deep as the budget allows
+            assert k <= 320 and plan["bn"] == 80
             if plan["stages"] < L.MAX_STAGES:
-                assert L.gemm_smem("stripe", k, plan["stages"] + 1) > SMEM
-            assert 1 <= plan["split"] <= plan["tiles"] == sum(-(-n // 160) for n in ns)
-            assert plan["cols"] == 160 * plan["tiles"]
+                assert L.gemm_smem("stripe", k, plan["stages"] + 1) + table > SMEM
+            assert 1 <= plan["split"] <= plan["tiles"] == sum(-(-n // plan["bn"]) for n in ns)
+            assert plan["items"] == plan["stripes"] * plan["split"]
+            assert plan["blocks"] == min(plan["items"], L.SMS)
+            assert plan["cols"] == plan["bn"] * plan["tiles"]
         else:
             # 128 x 256 tiles of two 128-column units, one persistent block an SM
-            assert k >= 640 and plan["bn"] == 256 and plan["stages"] == L.TILED_STAGES
+            assert k > 320 and plan["bn"] == 256 and plan["stages"] == L.TILED_STAGES
             assert L.gemm_smem("tiled", k, plan["stages"] + 1) > SMEM
             assert plan["units"] == sum(-(-n // 128) for n in ns)
             assert plan["tiles"] == plan["stripes"] * -(-plan["units"] // 2)
-            assert plan["split"] == min(plan["tiles"], L.SMS)
+            assert plan["split"] == 1 and plan["blocks"] == min(plan["tiles"], L.SMS)
             assert plan["cols"] == 256 * -(-plan["units"] // 2)
 
 
 @pytest.mark.parametrize("k,bm", [(32, 128), (320, 128), (576, 128), (640, 128), (1280, 128)])
 def test_k3_plan_stripe_rows(k, bm):
-    """128 rows a block in both regimes: a resident stripe while two weight
-    tiles fit beside it (K <= 576), else a 128 x 256 tile streamed."""
+    """128 rows a block in both regimes: a stripe held as register A
+    fragments (K <= 320, every level-0 width), else a 128 x 256 tile
+    streamed (576: no path shape has K between 320 and 640)."""
     plan = L.gemm_plan(4096, k, [k])
     assert plan["bm"] == bm
-    assert plan["regime"] == ("stripe" if k <= 576 else "tiled")
+    assert plan["regime"] == ("stripe" if k <= 320 else "tiled")
 
 
 def test_k3_plan_splits_n_only_for_few_stripes():
-    assert L.gemm_plan(48 * 4096, 320, [320] * 3)["split"] == 1
+    big = L.gemm_plan(48 * 4096, 320, [320] * 3)
+    assert big["split"] == 1 and big["blocks"] == L.SMS
     small = L.gemm_plan(2 * 4096, 320, [320] * 3)  # pose2img: 64 stripes
-    assert small["split"] * small["stripes"] >= 2 * L.SMS
+    # the N splits fill the card with one item a block, and no more
+    assert small["stripes"] * small["split"] == small["items"] == small["blocks"]
+    assert L.SMS - small["stripes"] < small["items"] <= L.SMS
     # the tiled regime runs one block an SM, or one a tile where there are fewer
-    assert L.gemm_plan(24 * 256, 1280, [1280] * 3)["split"] == L.SMS
-    assert L.gemm_plan(48 * 64, 1280, [1280])["split"] == 24 * 5
+    assert L.gemm_plan(24 * 256, 1280, [1280] * 3)["blocks"] == L.SMS
+    assert L.gemm_plan(48 * 64, 1280, [1280])["blocks"] == 24 * 5
 
 
 @pytest.mark.parametrize("k,ns", [(12, [64]), (320, [100]), (320, [320] * 4), (320, [])])
 def test_k3_plan_raises_where_nothing_fits(k, ns):
     with pytest.raises(ValueError):
         L.gemm_plan(1000, k, ns)
+
+
+@pytest.mark.parametrize("g_dt,b_dt", [(torch.float16, torch.float16),
+                                       (torch.bfloat16, torch.float32)])
+def test_k3_raises_on_other_parameter_dtypes(g_dt, b_dt):
+    """gamma and beta are read as they are, bf16 or f32 of one dtype; any
+    other raises before a launch (no cast on the host path)."""
+    x, w = torch.zeros(256, 320, dtype=torch.bfloat16), torch.zeros(320, 320, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="gamma and beta"):
+        L.ln_gemm(x, torch.ones(320, dtype=g_dt), torch.zeros(320, dtype=b_dt), [w], [None])
 
 
 @pytest.mark.parametrize("k,ns", [(1344, [64]), (2560, [2560])])
