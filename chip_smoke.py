@@ -27,7 +27,9 @@ Phases, in order; any failure exits non-zero:
      and K4's level-0 W_o + residual (every row with gamma, beta and the
      biases in bf16 and in f32, two calls bitwise equal, the host's us a
      call), K1 at d = 192 and 264 (the d = 512 path, keys split), K4 at
-     levels 0, 1 and 3, K5
+     the rows of tools/k4_rows.py (levels 0-3 and the mid block, a tp = 2
+     head shard; gamma and beta in bf16 and in f32, two calls bitwise
+     equal), K5
      at the level-1, level-2 and mid bank-concat and level-0 audio
      self-attention shapes (every K5 shape timed against SDPA's backward);
      K1 (no LSE), K2 and K3 at pose2img's level 0 (2 rows of 4096 tokens),
@@ -631,48 +633,39 @@ def check_k3(torch, L):
 
 
 def check_k4(torch, M):
-    """K4 against its plain version, every case timed with its bound (no
-    single PyTorch call computes the function)."""
-    dev = "cuda"
-    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    """K4 against its plain version at every row of `tools/k4_rows.ROWS`
+    (levels 0-3 and the mid block, a tp = 2 head shard), with gamma and
+    beta in bf16 (as the model holds them) and in f32; two calls bitwise
+    equal; every row timed with its bound (no single PyTorch call computes
+    the function)."""
+    from mmgt_tpu_torch.tools.k4_rows import ROWS, case
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rec, rows = None, {}
-    # (name, shape, heads, tp): at tp > 1 a rank's head shard, q/k/v
-    # (C / tp, C), W_o (C, C / tp), no residual and no bias
-    for name, shape, heads, tp in [("L0 (4 rows)", (4, 12, 4096, 320), 8, 1),
-                                   ("L1", (4, 12, 1024, 640), 8, 1),
-                                   ("L3 / mid, 64 tokens", (4, 12, 64, 1280), 8, 1),
-                                   ("tp2 L0, 4 local heads", (4, 12, 4096, 320), 4, 2)]:
-        b, f, l, c = shape
-        inner = c // tp
-        x = torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
-        gam = (1 + 0.1 * torch.randn(c, generator=g, device=dev)).to(torch.bfloat16)
-        bet = (0.1 * torch.randn(c, generator=g, device=dev)).to(torch.bfloat16)
-        pe = M.sinusoidal_positions(32, c, dev)[:f]
-        ws = [(torch.randn(inner, c, generator=g, device=dev) / math.sqrt(c)).to(torch.bfloat16)
-              for _ in range(3)]
-        ws.append((torch.randn(c, inner, generator=g, device=dev) / math.sqrt(inner))
-                  .to(torch.bfloat16))
-        bo = (0.1 * torch.randn(c, generator=g, device=dev)).to(torch.bfloat16)
-        args = (x, gam, bet, pe, *ws, bo, heads, 1e-5) if tp == 1 else \
-            (x, gam, bet, pe, *ws, None, heads, 1e-5, False)
-        got = M.motion_attention(*args)
-        want = M.motion_attention_plain(*args)
+    for row in ROWS:
+        name = f"{row[0]} {row[1]}"
+        cs = case(torch, M, row, g)
+        got, want = cs["fn"](), cs["plain"]()
         err, tol = max_err(got, want), ulp_tol(want)
-        log(f"K4 {name}: max_abs_err {err:.3e} (tol {tol:.3e}, 2 bf16 ulps)")
+        b, f, l, c = row[2]
+        plan = M.attn_plan(f, l, c, row[3], c // row[4], b)
+        log(f"K4 {name}: max_abs_err {err:.3e} (tol {tol:.3e}, 2 bf16 ulps), "
+            f"{plan['regime']} regime")
         require(math.isfinite(err) and err <= tol, f"K4 {name}: err {err} > {tol}")
-        m = b * f * l
-        row = time_row(lambda: M.motion_attention(*args),
-                       lambda: M.motion_attention_plain(*args), None,
-                       2.0 * m * c * inner * 4 + 4.0 * b * l * f * f * inner,
-                       nbytes(x, gam, bet, pe, *ws, bo if tp == 1 else None, got),
-                       f"{name}: x {shape}, {heads} heads" + (
-                           "" if tp == 1 else f" (W_q/k/v {(inner, c)}, W_o {(c, inner)}, "
-                                              "no residual)"))
-        row["max_abs_err"] = err
-        rows[name] = row
+        require(torch.equal(got, cs["fn"]()), f"K4 {name}: two calls differ")
+        del want
+        got32, want32 = cs["fn_f32"](), cs["plain_f32"]()
+        err32, tol32 = max_err(got32, want32), ulp_tol(want32)
+        require(math.isfinite(err32) and err32 <= tol32,
+                f"K4 {name}, f32 gamma/beta: err {err32} > {tol32}")
+        del got32, want32
+        row_ = time_row(cs["fn"], cs["plain"], None, cs["flops"], cs["in_bytes"] + nbytes(got),
+                        f"{name}: {cs['label']}")
+        row_["max_abs_err"] = err
+        rows[name] = row_
         if rec is None:
-            rec = dict(row, rows=rows)
-        del x, got, want
+            rec = dict(row_, rows=rows)
+        del cs, got
         torch.cuda.empty_cache()
     return rec
 
@@ -3407,7 +3400,7 @@ BENCH_TIMEOUT_S = 300
 BENCH_CHILD = "bench-child"   # argv[1] of the recording child (`bench_child`)
 # a kernel name of each kernel's family in a device table
 KERNEL_TRACE_NAMES = {"flash_attention": "flash_fwd", "group_norm": "gn_resident",
-                      "ln_projections": "ln_gemm", "motion_attention": "motion_attn",
+                      "ln_projections": "ln_gemm", "motion_attention": "motion_fused",
                       "flash_attention_bwd": "bwd_dq"}
 
 

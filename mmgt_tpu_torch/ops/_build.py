@@ -53,8 +53,10 @@ SIGNATURES = {
         + [VP] * 10 + [INT] * 5 + [VP],
     },
     "motion_attn": {
-        "mmgt_ln_pe": [VP] * 5 + [LL] + [INT] * 3 + [FLT, VP],
-        "mmgt_motion_attn": [VP] * 5 + [INT] * 6 + [FLT] + [INT] * 4 + [VP],
+        "mmgt_motion_fused": [VP] * 3 + [INT] + [VP] * 5 + [INT] * 6 + [FLT] * 2 + [INT] * 5
+        + [VP],
+        "mmgt_ln_pe": [VP] * 3 + [INT] + [VP] * 2 + [LL] + [INT] * 3 + [FLT, VP],
+        "mmgt_motion_heads": [VP] * 5 + [INT] * 6 + [FLT] + [INT] * 4 + [VP],
     },
 }
 

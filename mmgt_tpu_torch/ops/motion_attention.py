@@ -10,21 +10,25 @@ the projection, f32 logits and softmax, probabilities rounded to the
 compute dtype, P . V summed in f32.
 
 K4 replaces the TPU kernel mmgt_tpu/ops/motion_attention.py:_motion_kernel
-with three launches: `ln_pe` (csrc/motion_attn.cu), which writes the
-bf16-rounded LN(x) * gamma + beta + pe row that the products take; kernel A
-(csrc/motion_attn.cu `motion_attn`), one block per (head, block of Lt
-tokens, row), which runs the head's q/k/v projections on wgmma (TMA-fed)
-and the frame attention from shared memory, and writes only the attention
-output o; and K3's GEMM (csrc/ln_proj.cu) without LayerNorm for W_o, with
-the f32 bias and the residual. q and k never reach device memory. The plan
-of kernel A (`attn_plan`) is computed here and checked by its C entry.
-On a head shard (tensor parallelism) the q/k/v weights are (H_local D, C)
-and W_o (C, H_local D): kernel A writes o (M, H_local D) and the W_o GEMM
-runs without its residual and bias (`residual=False`), which the caller
-adds once after the reduce. It
-takes every token count L and up to 32 frames (the TPU's L % 128 == 0 gate
-was a tiling rule); the head dims are those of `_HEAD_DIMS`. Bound on the
-H100 for the whole: operations at level 0 (the four C x C products).
+(csrc/motion_attn.cu), in one of two regimes chosen by `attn_plan`:
+  * fused (C <= 320, d <= 64: level 0 and its head shards): one persistent
+    kernel (`motion_fused`) reads x once per token block, normalises it on
+    chip (the normalised rows never reach device memory), runs every head's
+    q/k/v products on wgmma, the logits on the CUDA cores and P . V on
+    wgmma, and writes only the attention output o;
+  * per head (every other shape): `ln_pe` writes the bf16 normalised row h,
+    then one block per (head, block of tokens, row) runs that head's
+    products and frame attention (`motion_attn`).
+Then K3's GEMM (csrc/ln_proj.cu) without LayerNorm for W_o, with the bias
+and the residual. Both plans are computed here and checked by the C
+entries. gamma and beta are read as the model holds them (bf16 or f32), pe
+as f32: the host casts nothing. On a head shard (tensor parallelism) the
+q/k/v weights are (H_local d, C) and W_o (C, H_local d): the kernels write
+o (M, H_local d) and the W_o GEMM runs without its residual and bias
+(`residual=False`), which the caller adds once after the reduce. K4 takes
+every token count L and up to 32 frames (the TPU's L % 128 == 0 gate was a
+tiling rule); the head dims are those of `_HEAD_DIMS`. Bound on the H100
+for the whole: operations (the four C x C products).
 
 On a CPU tensor `motion_attention` runs `motion_attention_plain`; on a
 CUDA tensor it launches K4 or raises. Gradients: the forward still runs K4
@@ -89,16 +93,35 @@ def motion_attention_plain(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads: int,
     return out.to(cdt)
 
 
-# kernel A's plan (csrc/motion_attn.cu): rows, tokens a block, ring depth
+# K4's plans (csrc/motion_attn.cu). The fused regime: x (B, F, L, C) with
+# C <= 320 and d <= 64; the per-head regime: every other shape
 SMEM_LIMIT = 232448   # 227 KB a block on the H100
 TWO_BLOCKS = 115712   # two blocks an SM: (228 KB - 2 x 1 KB reserved) / 2
-_PAD = 4              # f32 padding of a staged q/k/v row
+SMS = 132             # the H100's SMs: the fused regime's persistent grid
+_PAD = 4              # f32 padding of a staged q/k row
 _HEAD_DIMS = (16, 32, 40, 64, 80, 96, 128, 160)
 _MAX_CHANNELS = 2048  # ln_pe holds a row in one warp's registers
+_FUSED_C, _FUSED_D = 320, 64  # the fused regime's widest rows and heads
+
+
+def _up(v: int, a: int) -> int:
+    return -(-v // a) * a
+
+
+def fused_smem(d: int, channels: int, stages: int) -> int:
+    """Shared-memory bytes of a fused block (as `fused_smem` in
+    csrc/motion_attn.cu): alignment slack; the stripe (128 rows x C); the
+    weight stages (a 64-column chunk of the head's W_q, W_k and W_v); two
+    attention groups (q and k in f32, P and v transposed in bf16); the f32
+    table of gamma and beta; the mbarriers."""
+    stripe = _up(channels, 64) // 64 * 128 * 128
+    stage = _up(3 * d * 128, 1024)
+    group = _up(2 * 64 * (d + _PAD) * 4, 1024) + 64 * 128 + d * 128
+    return 1024 + stripe + stages * stage + 2 * group + 2 * channels * 4 + 8 * (2 * stages + 3)
 
 
 def attn_smem(rp: int, d: int, stages: int, frames: int, lt: int) -> int:
-    """Shared-memory bytes of a kernel-A block (as `attn_smem` in
+    """Shared-memory bytes of a per-head block (as `attn_smem` in
     csrc/motion_attn.cu): alignment slack, the ring of (h chunk, W_q, W_k,
     W_v chunks) stages or the staged q/k/v that alias it, the (Lt, F, F)
     probabilities and the mbarriers."""
@@ -109,13 +132,19 @@ def attn_smem(rp: int, d: int, stages: int, frames: int, lt: int) -> int:
 
 
 def attn_plan(frames: int, tokens: int, channels: int, heads: int,
-              inner: Optional[int] = None) -> dict:
-    """Kernel A's plan for x (B, F, L, C) and `heads` heads of d = inner /
-    heads (inner = C unless the weights are a head shard of
-    (inner, C)): RP = 128 rows a block (two
-    warpgroups of 64 rows) for d <= 96, else 64 (the warpgroups split the
-    head's columns); Lt = RP // F tokens (frame-major rows f Lt + t, the rest
-    padding); the deepest ring (2-4 stages) that lets two blocks share an
+              inner: Optional[int] = None, batch: int = 1) -> dict:
+    """K4's plan for x (batch, F, L, C) and `heads` heads of d = inner /
+    heads (inner = C unless the weights are a head shard of (inner, C)).
+
+    The fused regime (C <= 320, d <= 64): Lh = min(64 // F, L) tokens a
+    64-row half (frame-major rows f Lh + t), 2 Lh tokens a unit; the deepest
+    weight ring (2-8 stages) that fits 227 KB; the heads a unit (hg, a
+    divisor of the heads: the fewest groups that fill the card as well as
+    any) and the persistent grid (at most one block an SM).
+
+    The per-head regime: RP = 128 rows a block (two warpgroups of 64 rows)
+    for d <= 96, else 64 (the warpgroups split the head's columns); Lt = RP
+    // F tokens; the deepest ring (2-4 stages) that lets two blocks share an
     SM, else the deepest that fits one. Raises on a shape it does not take."""
     inner = channels if inner is None else inner
     d = inner // heads
@@ -126,6 +155,21 @@ def attn_plan(frames: int, tokens: int, channels: int, heads: int,
         raise ValueError(f"K4 takes 1 to 32 frames, got {frames}")
     if channels > _MAX_CHANNELS:
         raise ValueError(f"K4's LayerNorm pre-pass takes C <= {_MAX_CHANNELS}, got {channels}")
+    if channels <= _FUSED_C and d <= _FUSED_D:
+        lh = min(64 // frames, tokens)
+        fits = [s for s in range(8, 1, -1) if fused_smem(d, channels, s) <= SMEM_LIMIT]
+        if fits:
+            items = batch * -(-tokens // (2 * lh))
+            # makespan in heads, ceil(units / SMs) rounds of hg heads each
+            # plus a quarter of a head for each unit's own stripe: the fewest
+            # head groups within 5 % of the best
+            cost = {g: -(-items * g // SMS) * (heads // g + 0.25)
+                    for g in range(1, heads + 1) if heads % g == 0}
+            groups = min(g for g in cost if cost[g] <= 1.05 * min(cost.values()))
+            units = items * groups
+            return dict(regime="fused", lh=lh, stages=fits[0], hg=heads // groups,
+                        groups=groups, units=units, grid=min(units, SMS),
+                        smem=fused_smem(d, channels, fits[0]))
     rp = 128 if d <= 96 else 64
     lt = max(1, min(rp // frames, tokens))
     fits = [s for s in (4, 3, 2) if attn_smem(rp, d, s, frames, lt) <= TWO_BLOCKS]
@@ -134,45 +178,58 @@ def attn_plan(frames: int, tokens: int, channels: int, heads: int,
     if not fits:
         raise ValueError(f"K4: no plan fits {SMEM_LIMIT} bytes at d = {d}, {frames} frames")
     stages = fits[0]
-    return dict(rp=rp, lt=lt, stages=stages, smem=attn_smem(rp, d, stages, frames, lt))
+    return dict(regime="heads", rp=rp, lt=lt, stages=stages,
+                smem=attn_smem(rp, d, stages, frames, lt))
 
 
-def ln_pe(x, gamma, beta, pe, eps: float):
-    """h = bf16(LN(x) * gamma + beta + pe[f]) for x (B, F, L, C) bf16, as
-    one (B F L, C) matrix (csrc/motion_attn.cu `ln_pe`)."""
-    b, f, l, c = x.shape
-    h = torch.empty((b * f * l, c), dtype=torch.bfloat16, device=x.device)
-    lib = _build.load("motion_attn")
-    rc = lib.mmgt_ln_pe(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), pe.data_ptr(),
-                        h.data_ptr(), b * f * l, l, f, c, float(eps), _build.stream_ptr(x))
-    _build.check(lib, rc, "LayerNorm + pe (K4)")
-    return h
+def _check_param(t, n: int, what: str) -> None:
+    if tuple(t.shape) != (n,) or not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"K4 takes a contiguous, 16-byte aligned ({n},) {what}")
 
 
 def _launch(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads, eps, residual=True):
     global LAUNCHES
     b, f, l, c = x.shape
     inner = wq.shape[0]
-    plan = attn_plan(f, l, c, heads, inner)
+    plan = attn_plan(f, l, c, heads, inner, b)
     if not x.is_contiguous() or x.dtype != torch.bfloat16:
         raise ValueError("K4 takes a contiguous bf16 input")
     for w, shape in ((wq, (inner, c)), (wk, (inner, c)), (wv, (inner, c)), (wo, (c, inner))):
         if w.dtype != torch.bfloat16 or tuple(w.shape) != shape or not w.is_contiguous():
             raise ValueError(f"K4 takes contiguous bf16 ({inner}, {c}) q/k/v and ({c}, {inner}) "
                              "W_o weights")
-    if tuple(pe.shape) != (f, c):
-        raise ValueError(f"K4 takes pe ({f}, {c}), got {tuple(pe.shape)}")
+    # gamma and beta are read as the model holds them, pe as f32: no cast
+    if gamma.dtype != beta.dtype or gamma.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("K4 takes gamma and beta in bf16 or f32, of one dtype")
+    _check_param(gamma, c, "gamma")
+    _check_param(beta, c, "beta")
+    if tuple(pe.shape) != (f, c) or pe.dtype != torch.float32 or not pe.is_contiguous() \
+            or pe.data_ptr() % 16:
+        raise ValueError(f"K4 takes a contiguous f32 pe ({f}, {c}), got {tuple(pe.shape)} "
+                         f"{pe.dtype}")
     x2 = x.reshape(-1, c)
-    h = ln_pe(x, gamma.float().contiguous(), beta.float().contiguous(),
-              pe.float().contiguous(), eps)
     o = torch.empty((x2.shape[0], inner), dtype=x.dtype, device=x.device)
     d = inner // heads
+    ln_bf16 = int(gamma.dtype == torch.bfloat16)
+    stream = _build.stream_ptr(x2)
     lib = _build.load("motion_attn")
-    rc = lib.mmgt_motion_attn(
-        h.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), o.data_ptr(), b, f, l, c,
-        heads, d, 1.0 / math.sqrt(d), plan["rp"], plan["lt"], plan["stages"],
-        plan["smem"], _build.stream_ptr(x2))
-    _build.check(lib, rc, "motion attention (K4)")
+    if plan["regime"] == "fused":
+        rc = lib.mmgt_motion_fused(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ln_bf16, pe.data_ptr(),
+            wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), o.data_ptr(), b, f, l, c, heads, d,
+            1.0 / math.sqrt(d), float(eps), plan["lh"], plan["stages"], plan["hg"], plan["grid"],
+            plan["smem"], stream)
+        _build.check(lib, rc, "motion attention (K4, fused)")
+    else:
+        h = torch.empty((x2.shape[0], c), dtype=torch.bfloat16, device=x.device)
+        rc = lib.mmgt_ln_pe(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ln_bf16,
+                            pe.data_ptr(), h.data_ptr(), b * f * l, l, f, c, float(eps), stream)
+        _build.check(lib, rc, "LayerNorm + pe (K4)")
+        rc = lib.mmgt_motion_heads(
+            h.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), o.data_ptr(), b, f, l, c,
+            heads, d, 1.0 / math.sqrt(d), plan["rp"], plan["lt"], plan["stages"], plan["smem"],
+            stream)
+        _build.check(lib, rc, "motion attention (K4, per head)")
     (out,) = ln_gemm(o, None, None, [wo], [bo], res=[x2] if residual else None)
     LAUNCHES += 1
     return out.reshape(x.shape)

@@ -27,9 +27,11 @@ ways:
         weight tiles (K <= 320), or 128 x 256 tiles of two 128-column
         weight units (K > 320), over 64-column K chunks
         (`ops/fused_ln.py:gemm_plan`);
-      - K4 (`csrc/motion_attn.cu`): kernel A runs its q/k/v products on
-        blocks of RP rows (F x Lt of them used) and the frame attention on
-        Lt tokens a block (`ops/motion_attention.py:attn_plan`); W_o runs
+      - K4 (`csrc/motion_attn.cu`): at C <= 320 and d <= 64 its fused
+        kernel runs every head's q/k/v products on 128-row units and P . V
+        as a 64 x 64 product a half; elsewhere its per-head kernel runs them
+        on blocks of RP rows (F x Lt of them used) and the frame attention
+        on Lt tokens a block (`ops/motion_attention.py:attn_plan`); W_o runs
         on K3's GEMM plan;
   * closed_form: the JAX bench's (`bench.py:useful_flops`): 0.68e12 x 1.55
     FLOPs a UNet frame row, 1.24e12 a decoded 512^2 frame, and its rough
@@ -113,13 +115,21 @@ def k3_executed(m: int, k: int, ns: Sequence[int]) -> int:
 
 def k4_executed(b: int, f: int, l: int, c: int, heads: int, inner: int) -> int:
     """K4's FLOPs for x (b, f, l, c) and `heads` heads of inner / heads
-    columns: kernel A's blocks (one per head, Lt tokens and row) run q, k
-    and v on RP rows over 64-column chunks of C and the frame attention of
-    Lt tokens; then W_o on K3's plan."""
+    columns. The fused regime: each unit (2 Lh tokens of a row: two 64-row
+    halves, F Lh of each used) runs every head's q, k and v on its 128 rows
+    over 64-column chunks of C, the logits of its tokens and P . V as a
+    64 x 64 x d product a half and head. The per-head regime: one block per
+    head, Lt tokens and row runs q, k and v on RP rows and the frame
+    attention of Lt tokens. Then W_o on K3's plan."""
     from mmgt_tpu_torch.ops.motion_attention import attn_plan
 
-    plan = attn_plan(f, l, c, heads, inner)
+    plan = attn_plan(f, l, c, heads, inner, b)
     d = inner // heads
+    if plan["regime"] == "fused":
+        items = plan["units"] // plan["groups"]
+        per_item = (3 * 2 * 128 * inner * _up(c, 64) + 2 * 2 * plan["lh"] * f * f * inner
+                    + 2 * 2 * 64 * 64 * inner)
+        return items * per_item + k3_executed(b * f * l, inner, [c])
     blocks = heads * -(-l // plan["lt"]) * b
     per_block = 3 * 2 * plan["rp"] * d * _up(c, 64) + 4 * plan["lt"] * f * f * d
     return blocks * per_block + k3_executed(b * f * l, inner, [c])

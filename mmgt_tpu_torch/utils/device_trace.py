@@ -30,6 +30,7 @@ FAMILIES = (
     ("K5 bwd_dsum + bwd_dq + bwd_dkv", ("bwd_dsum", "bwd_dq", "bwd_dkv")),
     ("K2 gn_resident + gn_stream_*", ("gn_resident", "gn_stream")),
     ("K3 and K4's W_o: ln_gemm", ("ln_gemm",)),
+    ("K4 fused: motion_fused", ("motion_fused",)),
     ("K4 kernel A: motion_attn", ("motion_attn",)),
     ("K4 LayerNorm + pe: ln_pe", ("ln_pe",)),
     ("cuDNN convolution", ("fprop", "conv", "dgrad", "wgrad")),

@@ -471,6 +471,77 @@ def test_motion_attention_kernel_head_shard(gen, shape, heads):
     _check(got, M.motion_attention_plain(*args))
 
 
+def _k4_args(gen, shape, heads, tp=1, pdt=torch.bfloat16):
+    """x, gamma and beta (in `pdt`), pe, q/k/v (inner, C) and W_o (C, inner)
+    for `heads` heads of d = inner / heads; tp > 1: a head shard of the
+    weights, no residual and no bias."""
+    b, f, l, c = shape
+    inner = c // tp
+    x = _bf(gen, *shape)
+    g, bb = (1 + _bf(gen, c, scale=0.1)).to(pdt), _bf(gen, c, scale=0.1).to(pdt)
+    pe = M.sinusoidal_positions(32, c, "cuda")[:f]
+    ws = [_bf(gen, inner, c, scale=1 / math.sqrt(c)) for _ in range(3)]
+    wo = _bf(gen, c, inner, scale=1 / math.sqrt(inner))
+    if tp == 1:
+        return (x, g, bb, pe, *ws, wo, _bf(gen, c, scale=0.1), heads)
+    return (x, g, bb, pe, *ws, wo, None, heads, 1e-5, False)
+
+
+def _k4_check(args):
+    ops.reset_launch_counts()
+    got = M.motion_attention(*args)
+    assert ops.launch_counts()["motion_attention"] == 1
+    assert got.shape == args[0].shape
+    _check(got, M.motion_attention_plain(*args))
+    assert torch.equal(got, M.motion_attention(*args))  # two calls, the same bits
+
+
+# every head dim K4 takes, at 2 and 8 heads (C = 2 d .. 8 d: the resident
+# regime up to C = 320 and d = 64, 128 streamed rows to d = 80, 64 streamed
+# rows with the head's columns split above), gamma and beta in bf16 and f32;
+# 37 tokens end inside a block of every regime
+@pytest.mark.parametrize("pdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,heads", [(d, h) for d in M._HEAD_DIMS for h in (2, 8)])
+def test_motion_attention_kernel_head_dims(gen, d, heads, pdt):
+    _k4_check(_k4_args(gen, (2, 12, 37, heads * d), heads, pdt=pdt))
+
+
+# 1 to 32 frames at C = 320, 640 and 1280 (8 heads: d = 40, 80, 160), token
+# counts off the blocks (Lh = 64 // F tokens a 64-row half)
+@pytest.mark.parametrize("c", [320, 640, 1280])
+@pytest.mark.parametrize("f,l", [(1, 130), (2, 70), (8, 19), (12, 23), (16, 9), (32, 5)])
+def test_motion_attention_kernel_frames(gen, f, l, c):
+    _k4_check(_k4_args(gen, (2, f, l, c), 8))
+
+
+# head shards at tp = 2 and 4 at C = 320, 640 and 1280, gamma and beta in
+# bf16 and f32
+@pytest.mark.parametrize("pdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,tp", [(320, 2), (320, 4), (640, 2), (640, 4), (1280, 2), (1280, 4)])
+def test_motion_attention_kernel_shards(gen, c, tp, pdt):
+    _k4_check(_k4_args(gen, (2, 12, 51, c), 8 // tp, tp, pdt))
+
+
+@pytest.mark.parametrize("c,pdt", [(320, torch.bfloat16), (320, torch.float32),
+                                   (640, torch.float32), (1280, torch.bfloat16)])
+def test_motion_attention_launches_only_its_kernels(gen, c, pdt):
+    """A K4 call launches only K4's kernels and K3's W_o GEMM, and no cast,
+    with gamma and beta in bf16 or f32: at C <= 320 the fused kernel and
+    the GEMM; elsewhere the LayerNorm pre-pass, the per-head kernel and the
+    GEMM."""
+    args = _k4_args(gen, (2, 12, 64, c), 8, pdt=pdt)
+    M.motion_attention(*args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        M.motion_attention(*args)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages() if e.device_time_total > 0]
+    want = ("motion_fused", "ln_gemm") if c <= 320 else ("ln_pe", "motion_attn", "ln_gemm")
+    assert len(kernels) == len(want) and all(n == 1 for _, n in kernels), kernels
+    for name in want:
+        assert sum(name in k for k, _ in kernels) == 1, (name, kernels)
+
+
 # K3 on the tp shard shapes: level-0 q/k/v at tp = 2 (3 x 160) and tp = 4
 # (3 x 80, a partial 160-column tile), the GEGLU half-pairs (1280, 640)
 # with bias, level-2 audio q at tp = 2 (3 x 640 of K = 1280)

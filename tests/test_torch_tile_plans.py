@@ -1,5 +1,5 @@
 """The Python plans of K2 (`norms.gn_plan`), K3 (`fused_ln.gemm_plan`),
-K4's kernel A (`motion_attention.attn_plan`) and K1's key split at d = 512
+K4 (`motion_attention.attn_plan`) and K1's key split at d = 512
 (`attention.wide_splits`): every shape that the port's
 main path, its trainer and the card's tiny pipelines hand these kernels
 gets a plan that fits 227 KB of shared memory, and a shape that cannot fit
@@ -126,38 +126,77 @@ def _k4_shapes(chans, tokens, heads):
             yield frames, l, c, heads
 
 
-@pytest.mark.parametrize("config,heads", [("full", 8), ("card tiny", 2)])
-def test_k4_plan_fits_every_path_shape(config, heads):
-    chans, tokens = WIDTHS[config]
-    for f, l, c, h in _k4_shapes(chans, tokens, heads):
-        plan = M.attn_plan(f, l, c, h)
-        d = c // h
+def _check_k4_plan(plan, f, l, c, h, batch):
+    """A plan of either regime: fits 227 KB; the fused regime's halves hold
+    whole tokens (F Lh <= 64 rows) and its persistent grid is at most one
+    block an SM; the per-head regime's blocks as before."""
+    d = c // h
+    assert plan["regime"] == ("fused" if c <= 320 and d <= 64 else "heads")
+    if plan["regime"] == "fused":
+        assert plan["lh"] == min(64 // f, l) and plan["lh"] * f <= 64
+        assert 2 <= plan["stages"] <= 8
+        assert plan["smem"] == M.fused_smem(d, c, plan["stages"]) <= SMEM
+        assert plan["stages"] == 8 or M.fused_smem(d, c, plan["stages"] + 1) > SMEM
+        items = batch * -(-l // (2 * plan["lh"]))
+        assert h % plan["hg"] == 0 and plan["groups"] == h // plan["hg"]
+        assert plan["units"] == items * plan["groups"]
+        assert plan["grid"] == min(plan["units"], M.SMS) <= 132
+    else:
         assert plan["rp"] == (128 if d <= 96 else 64)
         assert 1 <= plan["lt"] <= l and plan["lt"] * f <= plan["rp"]
         assert 2 <= plan["stages"] <= 4
         assert plan["smem"] == M.attn_smem(plan["rp"], d, plan["stages"], f, plan["lt"]) <= SMEM
 
 
+@pytest.mark.parametrize("config,heads", [("full", 8), ("card tiny", 2)])
+def test_k4_plan_fits_every_path_shape(config, heads):
+    chans, tokens = WIDTHS[config]
+    for f, l, c, h in _k4_shapes(chans, tokens, heads):
+        for batch in (4, 1):
+            _check_k4_plan(M.attn_plan(f, l, c, h, batch=batch), f, l, c, h, batch)
+
+
 def test_k4_plan_level0_two_blocks_an_sm():
-    """At level 0 (d = 40, 12 frames) two blocks share an SM: 10 tokens a
-    block (120 of 128 rows), three ring stages."""
-    plan = M.attn_plan(12, 4096, 320, 8)
-    assert (plan["rp"], plan["lt"], plan["stages"]) == (128, 10, 3)
-    assert plan["smem"] <= M.TWO_BLOCKS
+    """Level 0 (d = 40, 12 frames, the denoiser's 4 rows) ran two per-head
+    blocks an SM before the fused regime; now one persistent block an SM
+    (its shared memory is over half the SM's 228 KB) holds a 128-row stripe
+    of 10 tokens (two halves of 5, 60 of 64 rows each), a 4-stage weight
+    ring, and runs all 8 heads of its tokens: 1640 units over 132 blocks."""
+    plan = M.attn_plan(12, 4096, 320, 8, batch=4)
+    assert (plan["regime"], plan["lh"], plan["stages"], plan["hg"]) == ("fused", 5, 4, 8)
+    assert (plan["units"], plan["grid"]) == (1640, 132)
+    assert 2 * plan["smem"] > 233472 >= plan["smem"]
 
 
 @pytest.mark.parametrize("tp", [2, 4, 8])
 def test_k4_plan_head_shards(tp):
     """A head shard (8 // tp heads of d = C / 8, inner = C / tp) gets the
-    plan of its head dim, as the whole layer's: the plan depends on d, F
-    and L only."""
+    regime and blocks of its head dim, as the whole layer's: they depend on
+    d, F, L and C only; the fused regime's heads a unit divide the shard's
+    own heads."""
     for c in (320, 640, 1280):
         for f in (12, 16):
-            whole = M.attn_plan(f, 4096 // (c // 320) ** 2, c, 8)
-            shard = M.attn_plan(f, 4096 // (c // 320) ** 2, c, 8 // tp, c // tp)
-            assert shard == whole, (c, f, tp)
+            l = 4096 // (c // 320) ** 2
+            whole = M.attn_plan(f, l, c, 8, batch=4)
+            shard = M.attn_plan(f, l, c, 8 // tp, c // tp, batch=4)
+            keys = ("regime", "lh", "stages", "smem") if whole["regime"] == "fused" else \
+                ("regime", "rp", "lt", "stages", "smem")
+            for key in keys:
+                assert shard[key] == whole[key], (c, f, tp, key)
+            if shard["regime"] == "fused":
+                assert (8 // tp) % shard["hg"] == 0 and shard["grid"] <= M.SMS
     with pytest.raises(ValueError):
         M.attn_plan(12, 64, 320, 3, 160)   # 160 columns are not 3 heads
+
+
+@pytest.mark.parametrize("d", M._HEAD_DIMS)
+def test_k4_plan_every_head_dim(d):
+    """Every head dim K4 takes plans at 1, 12 and 32 frames, two heads and
+    eight: the fused regime where C <= 320 and d <= 64, else per head."""
+    for heads in (2, 8):
+        c = heads * d
+        for f in (1, 12, 32):
+            _check_k4_plan(M.attn_plan(f, 100, c, heads, batch=2), f, 100, c, heads, 2)
 
 
 @pytest.mark.parametrize("f,l,c,heads", [(33, 64, 320, 8), (12, 64, 320, 7), (12, 64, 64, 8),
