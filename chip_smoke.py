@@ -851,8 +851,9 @@ def run_main(torch, ops, Pose2VideoPipeline):
 
 def run_profile(torch, Pose2VideoPipeline):
     """One full-width denoise step under torch.profiler: device time by
-    kernel, the step's wall time and the device's idle share. Not part of
-    the default run (`python3 chip_smoke.py profile`)."""
+    kernel, the step's wall time (the median of 5 unprofiled steps) and the
+    device's idle share. Not part of the default run (`python3
+    chip_smoke.py profile`)."""
     from mmgt_tpu_torch.diffusion.solver import init_solver_carry, solver_tables_for
     from mmgt_tpu_torch.pipelines.context import compute_context_schedule
 
@@ -870,9 +871,14 @@ def run_profile(torch, Pose2VideoPipeline):
         torch.cuda.synchronize()
 
     step()
-    t0 = time.perf_counter()
-    step()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = sorted(walls)[len(walls) // 2]
+    log(f"denoise step wall ms, 5 unprofiled steps: {', '.join(f'{w:.2f}' for w in walls)} "
+        f"(median {wall_ms:.2f})")
     report_profile(step, "one denoise step, 2 windows x CFG = 48 frame rows, 512x512", wall_ms)
     report_k2_calls(torch, step)
     report_k3_calls(torch, step)

@@ -145,24 +145,6 @@ struct TmaParams {
   float scale_log2;
 };
 
-// 2^x as one MUFU.EX2 (exp2f without --use_fast_math adds a range fix-up
-// around it); results below 2^-126 flush to 0, 2^-inf is 0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// keeps the compiler from reusing the registers of A fragments that an
-// asynchronous wgmma may still be reading (as fence_regs for accumulators)
-template <int N>
-__device__ __forceinline__ void fence_frags(uint32_t (*a)[4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
 template <int DP, int SW, int BK>
 struct TmaCfg {
   static constexpr int SWC = SW / 2;       // columns of one box (one swizzle span)

@@ -114,13 +114,6 @@ __device__ __forceinline__ void zero_rows(bf16* base, long long ss, int nrows, i
     *reinterpret_cast<uint4*>(base + (i / ch) * ss + (i % ch) * 8) = make_uint4(0, 0, 0, 0);
 }
 
-// 2^x on the special-function unit (flushes results below 2^-126 to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // 2^x on the FMA pipe, for x in [-126, 127] (smaller x gives ~2^-126, not
 // 0): x = j + f with j an integer (the 1.5 * 2^23 rounding trick) and f in
 // [-1/2, 1/2], 2^f by its degree-5 Taylor polynomial (relative error
@@ -132,16 +125,6 @@ __device__ __forceinline__ float ex2_poly(float x) {
   float p = fmaf(fmaf(fmaf(1.3333558e-3f, f, 9.6181291e-3f), f, 5.5504109e-2f), f, 0.24022651f);
   p = fmaf(fmaf(p, f, 0.69314718f), f, 1.f);
   return __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));
-}
-
-// keeps the compiler from reusing the registers of A fragments that an
-// asynchronous wgmma may still be reading (as fence_regs for accumulators)
-template <int N>
-__device__ __forceinline__ void fence_frags(uint32_t (*a)[4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 // The two consumer warpgroups take turns issuing their products (named

@@ -63,6 +63,10 @@
 
 namespace {
 
+using hopper::cluster_arrive;
+using hopper::cluster_rank;
+using hopper::cluster_wait;
+using hopper::map_rank;
 using hopper::mbar_expect_tx;
 using hopper::mbar_fence_init;
 using hopper::mbar_init;
@@ -76,23 +80,6 @@ static_assert(kStages == 4, "gn_resident's waits are written out for four groups
 constexpr int kMaxThreads = 1024;
 
 // ------------------------------------------------ cluster and cp.async
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-// the same shared-memory address in CTA `rank` of the cluster
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
-  return remote;
-}
 // a float into another CTA's shared memory (cluster addresses), counted
 // as 4 bytes on that CTA's mbarrier
 __device__ __forceinline__ void st_async(uint32_t remote, float v, uint32_t remote_bar) {

@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks shared by K1 (flash_attn.cu), K3
-// (ln_proj.cu), K4 (motion_attn.cu) and K5 (flash_attn_bwd.cu): mbarriers,
-// TMA tile loads, wgmma with shared-memory descriptors, and the host-side
+// Hopper (sm_90a) building blocks shared by K1 (flash_attn.cu), K2
+// (group_norm.cu), K3 (ln_proj.cu), K4 (motion_attn.cu) and K5
+// (flash_attn_bwd.cu): mbarriers, TMA tile loads (multicast to a thread
+// block cluster too), cluster barriers and remote arrivals, wgmma with
+// shared-memory descriptors, the softmaxes' 2^x, and the host-side
 // tensor-map encoder. The kernels that include it replace the TPU kernels
 // named in their own notes (mmgt_tpu/ops/attention.py,
 // fused_ln.py:_ln_proj_fwd, motion_attention.py:_motion_fwd); this header
@@ -83,6 +85,18 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
+// tma_load_2d into every CTA of the cluster named in `mask` (bit r: CTA
+// rank r): the box lands at the same shared-memory offset in each, and each
+// CTA's mbarrier at `bar` counts its bytes. Every destination CTA expects
+// the whole of what its cluster multicasts to it.
+__device__ __forceinline__ void tma_load_2d_mc(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                               int c0, int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
 // shared -> global tile store (TMA); out-of-range rows and columns of the
 // box are not written
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
@@ -113,6 +127,43 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// ---------------------------------------------------------------- cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every CTA of the cluster: arrive (release) and wait
+// (acquire); all threads of a warp execute them together
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the same shared-memory address in CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  return remote;
+}
+// one arrival on the mbarrier at `bar` of CTA `rank` of the cluster (a
+// consumer freeing a stage: its reads of the stage are complete, and it
+// wrote nothing there that the arrival has to publish)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(map_rank(bar, rank))
+               : "memory");
+}
+
+// ---------------------------------------------------------------- softmax
+// 2^x as one MUFU.EX2 (exp2f without --use_fast_math adds a range fix-up
+// around it); results below 2^-126 flush to 0, 2^-inf is 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ------------------------------------------------------------------ wgmma
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -134,6 +185,16 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float* d) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// keeps the compiler from reusing the registers of A fragments that an
+// asynchronous wgmma may still be reading (as fence_regs for accumulators)
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (*a)[4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 // Shared-memory matrix descriptor (PTX ISA, "Matrix Descriptor Format"):
@@ -264,6 +325,26 @@ __device__ __forceinline__ void wgmma_ss_n160(float* d, uint64_t da, uint64_t db
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// d[0:96] (+)= A(smem, K-major) . B(smem, K-major), m64n192k16
+__device__ __forceinline__ void wgmma_ss_n192(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[0:120] (+)= A(smem, K-major) . B(smem, K-major), m64n240k16
+__device__ __forceinline__ void wgmma_ss_n240(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %122, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n240k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119}, "
+      "%120, %121, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 // d[0:128] (+)= A(smem, K-major) . B(smem, K-major), m64n256k16
 __device__ __forceinline__ void wgmma_ss_n256(float* d, uint64_t da, uint64_t db, int acc) {
   asm volatile(
@@ -375,7 +456,7 @@ __device__ __forceinline__ void wgmma_ss_n256_t(float* d, uint64_t da, uint64_t 
 
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int acc) {
-  static_assert(N == 16 || N == 32 || N == 40 || N == 64 || N == 80 || N == 96 || N == 128 || N == 160 || N == 256, "wgmma_ss width");
+  static_assert(N == 16 || N == 32 || N == 40 || N == 64 || N == 80 || N == 96 || N == 128 || N == 160 || N == 192 || N == 240 || N == 256, "wgmma_ss width");
   if constexpr (N == 16) wgmma_ss_n16(d, da, db, acc);
   else if constexpr (N == 32) wgmma_ss_n32(d, da, db, acc);
   else if constexpr (N == 40) wgmma_ss_n40(d, da, db, acc);
@@ -384,6 +465,8 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int
   else if constexpr (N == 96) wgmma_ss_n96(d, da, db, acc);
   else if constexpr (N == 128) wgmma_ss_n128(d, da, db, acc);
   else if constexpr (N == 160) wgmma_ss_n160(d, da, db, acc);
+  else if constexpr (N == 192) wgmma_ss_n192(d, da, db, acc);
+  else if constexpr (N == 240) wgmma_ss_n240(d, da, db, acc);
   else if constexpr (N == 256) wgmma_ss_n256(d, da, db, acc);
 }
 template <int N>

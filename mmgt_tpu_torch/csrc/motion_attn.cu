@@ -19,7 +19,7 @@
 // C x C products and the frame attention, 164 GFLOP, 0.166 ms; 252 MB of x
 // in and out, 0.075 ms).
 //
-// Two regimes, chosen by C and d (ops/motion_attention.py:attn_plan,
+// Three regimes, chosen by C and d (ops/motion_attention.py:attn_plan,
 // checked by the C entries):
 //
 // Fused (C <= 320, d <= 64: level 0 and its head shards): one persistent
@@ -59,34 +59,80 @@
 //     P . V as a register-A wgmma, the logits sliced between chunk issues.
 //   * Deterministic: no partial sum crosses a block.
 //
-// Per head (every other shape: levels 1-3 and the mid block, C >= 640), the
-// earlier design, measured faster there than any fused variant (PERF.md):
-//   1. ln_pe: h = bf16(LN(x) * g + b + pe[f]) for every row (TPR lanes a
-//      row, the row in registers, f32 two-pass statistics as the reference):
-//      the rounded normalised row that the TPU kernel feeds its products;
-//   2. motion_attn (the per-head kernel, below): per-head q/k/v projections
-//      of h and the frame attention, writing only the attention output o.
-//   Why not fused there: a 128-row stripe is 160 KB at C = 640 and 320 KB
-//   at C = 1280, so it neither stays in shared memory beside the attention's
-//   staging nor fits in registers; streaming x chunks and normalising them
-//   for every head costs the LayerNorm eight times over (measured 0.40-0.57
-//   ms at level 1, where ln_pe takes 0.06).
-//   The per-head kernel: one block per (head h, block of Lt tokens, row b),
-//   heads fastest so that the blocks of one token block share its h tile
-//   in L2.
+// Clusters (d = 80, 128, 160: levels 1-3, the mid block and their head
+// shards, C >= 640 on the main path): the pre-pass `ln_pe` writes
+// h = bf16(LN(x) * g + b + pe[f]) for every row (TPR lanes a row, the row in
+// registers, f32 two-pass statistics as the reference), then the persistent
+// kernel `motion_cluster` runs each head's q/k/v products of h and the frame
+// attention, writing only o. (A 128-row stripe of x is 160 KB at C = 640 and
+// 320 KB at C = 1280: it neither stays in shared memory beside the
+// attention's staging nor fits in registers, and normalising streamed x
+// chunks once per head costs the LayerNorm eight times over: 0.40-0.57 ms
+// at level 1, where ln_pe takes 0.06.)
+//   * A unit is one head over cs neighbouring token blocks of the flattened
+//     (batch row, block) index, one block a CTA of a thread block cluster of
+//     cs CTAs: two 64-row groups a CTA at d = 80 (2 Lh tokens, a warpgroup
+//     a group), one at d >= 128 (Lh tokens; the warpgroups split the head's
+//     columns so that q, k and v fit in registers). Heads run fastest, so
+//     the clusters at work at once share their h rows in L2; the last unit
+//     may hold CTAs past the last block, which load no h and store nothing.
+//   * What bounds it (NVIDIA H100 80GB HBM3, 700 W; tools/k4_rows.py and
+//     throwaway copies, PERF.md): the per-head kernel, which ran these
+//     shapes before (0.44, 0.41 and 0.11 ms at levels 1, 2 and 3), spent
+//     0.26, 0.29 and 0.08 ms on the products, which streamed the head's
+//     W_q, W_k and W_v (3 d C bf16) for each block's 64 or 128 rows (1.0,
+//     2.0 and 0.5 GB a call from L2) and waited for each chunk's product
+//     before the next, and the rest on the frame attention, after them,
+//     on the CUDA cores.
+//   * The weights: each CTA's warp-8 thread loads its h rows and only
+//     1 / cs of each weight chunk (d / cs rows, a multiple of 8, so that
+//     each slice starts on the 128-byte swizzle's 1024-byte pattern),
+//     multicast to every CTA of the cluster (TMA .multicast::cluster): each
+//     weight byte fetched from L2 serves cs times the rows. cs = 2 at d =
+//     80 (4 would leave 20-row slices) and 4 at d >= 128: the weight bytes
+//     a call at levels 1, 2 and 3 fall to 0.51, 0.51 and 0.13 GB. A stage
+//     is refilled once the MMA warps of every CTA have freed it: each warp's
+//     lanes 0 .. cs - 1 arrive on the empty barrier of CTA `lane`
+//     (mbarrier.arrive.shared::cluster, which publishes nothing: with
+//     .release.cluster a chunk took ~2 x as long).
+//   * The products: each unit's chunk kc takes ring stage kc % stages (64
+//     columns of C, one 128-byte swizzle span, as K3's tiled GEMM; 32-column
+//     chunks under a 64-byte swizzle ran the products 1.7 x slower). The
+//     two MMA warpgroups run q, k and v as one SS wgmma a k step
+//     (m64n240k16: 64 rows x q, k and v at d = 80, or x half of each at d =
+//     160; m64n192k16 at d = 128), the last chunk's product in flight while
+//     the next stage is awaited.
+//   * Frame attention: the accumulators are staged (q and k in f32, v
+//     rounded to bf16 and transposed, zero in rows that hold no token; P
+//     zeroed) in the ring's last stages, which the unit's last chunks do
+//     not hand on until the attention is done; the next unit's first
+//     chunks load into the stages before them meanwhile. Warps 0-7 and 9-11
+//     (352 threads) compute the logits and softmax (2 or 4 threads a
+//     (token, query frame) pair, e^x one MUFU.EX2) into a bf16 P tile a
+//     group, and each MMA warpgroup runs P . V as an m64 n(d or d / 2) k16
+//     x 4 wgmma over its group's 64 keys (bf16 P times bf16 v, f32 sums:
+//     the plain version's arithmetic), storing o as bf16 pairs. Measured
+//     no faster: the staging kept apart from the ring with the logits on
+//     warps 9-11 under the next unit's products (beside its 110-120 KB only
+//     32-column stages fit), and the next unit's first chunks issued under
+//     the logits.
+//   * Deterministic: no partial sum crosses a CTA.
+//
+// Per head (every other shape: d <= 64 at C > 320, and d = 96; off the
+// main path): ln_pe, then one block per (head h, block of Lt tokens, row b),
+// heads fastest so that the blocks of one token block share its h tile in
+// L2.
 //   * Rows: the block's F x Lt rows in frame-major order (row f Lt + t),
-//     padded to RP = 128 rows (d <= 96; the two warpgroups own 64 rows
-//     each) or RP = 64 (d = 128, 160; both warpgroups own the 64 rows and
-//     split the head's columns, so that q, k and v fit in registers).
-//     Lt = RP / F tokens; the last token block may be ragged (TMA fills it
-//     with zeros; nothing of it is stored).
+//     padded to 128 rows (the two warpgroups own 64 rows each). Lt = 128 /
+//     F tokens; the last token block may be ragged (TMA fills it with
+//     zeros; nothing of it is stored).
 //   * Loads: thread 0 loads, per 64-column chunk of C, the (64, Lt, F) box
 //     of h (4-D tensor map over (C, L, F, B), 128-byte swizzle) and the
 //     head's 64-column chunks of W_q, W_k, W_v (D rows each) into one stage
 //     of a 2-4 stage ring (one full mbarrier a stage), issuing chunk
 //     kc - 1 + stages as soon as every thread is past chunk kc - 1.
-//   * Projections: the two warpgroups run q, k and v (m64nDk16 or
-//     m64n(D/2)k16, SS wgmma) into f32 registers: 3 x D / 2 a thread.
+//   * Projections: the two warpgroups run q, k and v (m64nDk16, SS wgmma)
+//     into f32 registers: 3 x D / 2 a thread.
 //   * Frame attention: the accumulators go to shared memory (q, k in f32;
 //     v rounded to bf16, held as f32), aliasing the drained ring; then two
 //     threads per (token, query frame) compute the F logits and the f32
@@ -129,15 +175,11 @@ __device__ __forceinline__ void load8(const void* v, int is_bf16, int i, float* 
   }
 }
 
-// e^x for the softmaxes: one MUFU.EX2 (ex2.approx.ftz of x log2 e; expf
+// e^x for the softmaxes is one MUFU.EX2 of x log2 e (hopper.cuh's ex2; expf
 // without --use_fast_math adds range handling, and the fused kernel's
-// logits ran 13 % faster without it). An f32 result, rounded to bf16 after
+// logits ran 13 % faster without it): an f32 result, rounded to bf16 after
 // the normalisation as the reference's probabilities are.
-__device__ __forceinline__ float exp_f32(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
-  return y;
-}
+constexpr float kLog2e = 1.4426950408889634f;
 
 // ====================================================================
 // the fused regime (C <= 320, d <= 64)
@@ -334,7 +376,7 @@ __device__ __forceinline__ void logits_softmax(const float* qs, const float* ks,
 #pragma unroll
   for (int jj = 0; jj < JM; ++jj)
     if (active && jj < jh && j0 + jj < F) {
-      lg[jj] = exp_f32(lg[jj] - m);
+      lg[jj] = ex2((lg[jj] - m) * kLog2e);
       sum += lg[jj];
     }
   sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -712,20 +754,21 @@ int launch_fused(const Params& p, int grid, int smem, cudaStream_t st) {
 // ====================================================================
 
 constexpr int kHeadThreads = 256;  // the per-head kernel: 2 warpgroups
+constexpr int kHeadRows = 128;     // rows of a block: 64 a warpgroup
 constexpr int kSpan = 64;          // bf16 columns of a 64-column (128-byte) chunk
 
-__host__ __device__ inline int stage_bytes(int rp, int d) { return rp * 128 + 3 * d * 128; }
-__host__ __device__ inline int staging_bytes(int rp, int d) { return 3 * rp * (d + kPad) * 4; }
-__host__ __device__ inline int region_bytes(int rp, int d, int stages) {
-  const int ring = stages * stage_bytes(rp, d), st = staging_bytes(rp, d);
+__host__ __device__ inline int head_stage_bytes(int d) { return kHeadRows * 128 + 3 * d * 128; }
+__host__ __device__ inline int head_staging_bytes(int d) { return 3 * kHeadRows * (d + kPad) * 4; }
+__host__ __device__ inline int region_bytes(int d, int stages) {
+  const int ring = stages * head_stage_bytes(d), st = head_staging_bytes(d);
   return ring > st ? ring : st;
 }
 // the (Lt, F, F) f32 probabilities, rounded up to 16 bytes
 __host__ __device__ inline int probs_bytes(int F, int lt) {
   return (lt * F * F * 4 + 15) / 16 * 16;
 }
-__host__ __device__ inline int attn_smem(int rp, int d, int stages, int F, int lt) {
-  return 1024 + region_bytes(rp, d, stages) + probs_bytes(F, lt) + 8 * stages;
+__host__ __device__ inline int attn_smem(int d, int stages, int F, int lt) {
+  return 1024 + region_bytes(d, stages) + probs_bytes(F, lt) + 8 * stages;
 }
 
 
@@ -843,7 +886,7 @@ __device__ __forceinline__ void head_logits_softmax(const float* qs, const float
 #pragma unroll
     for (int jj = 0; jj < JM; ++jj)
       if (active && jj < jh && j0 + jj < F) {
-        lg[jj] = exp_f32(lg[jj] - m);
+        lg[jj] = ex2((lg[jj] - m) * kLog2e);
         sum += lg[jj];
       }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -864,17 +907,16 @@ struct AttnParams {
   float scale;
 };
 
-template <int D, int RP>
-__global__ void __launch_bounds__(kHeadThreads, RP == 128 && D <= 64 ? 2 : 1)
+template <int D>
+__global__ void __launch_bounds__(kHeadThreads, D <= 64 ? 2 : 1)
     motion_attn(const __grid_constant__ AttnParams p) {
-  constexpr int NW = RP == 128 ? D : D / 2;  // wgmma width of one warpgroup
   constexpr int DS = D + kPad;
-  constexpr int XB = RP * 128, WB = D * 128, SB = XB + 3 * WB;
+  constexpr int XB = kHeadRows * 128, WB = D * 128, SB = XB + 3 * WB;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base_ptr = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const uint32_t sR = smem_u32(base_ptr);
   const int stages = p.stages;
-  const int region = region_bytes(RP, D, stages);
+  const int region = region_bytes(D, stages);
   float* probs = reinterpret_cast<float*>(base_ptr + region);                 // (Lt, F, F)
   const uint32_t bars = sR + region + probs_bytes(p.F, p.Lt);
   auto full = [&](int s) { return bars + 8u * s; };
@@ -902,9 +944,8 @@ __global__ void __launch_bounds__(kHeadThreads, RP == 128 && D <= 64 ? 2 : 1)
   }
   __syncthreads();
 
-  const int arow = RP == 128 ? 64 * wg : 0;   // the warpgroup's first row
-  const int bcol = RP == 128 ? 0 : NW * wg;   // and first column of the head
-  float q[NW / 2], k[NW / 2], v[NW / 2];
+  const int arow = 64 * wg;  // the warpgroup's first row
+  float q[D / 2], k[D / 2], v[D / 2];
   for (int kc = 0; kc < p.kchunks; ++kc) {
     const int s = kc % stages;
     const uint32_t st = sR + s * SB;
@@ -917,29 +958,29 @@ __global__ void __launch_bounds__(kHeadThreads, RP == 128 && D <= 64 ? 2 : 1)
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t da = make_desc<128>(st + arow * 128 + kk * 32, 16);
       const int acc = kc > 0 || kk > 0;
-      wgmma_ss<NW>(q, da, make_desc<128>(st + XB + bcol * 128 + kk * 32, 16), acc);
-      wgmma_ss<NW>(k, da, make_desc<128>(st + XB + WB + bcol * 128 + kk * 32, 16), acc);
-      wgmma_ss<NW>(v, da, make_desc<128>(st + XB + 2 * WB + bcol * 128 + kk * 32, 16), acc);
+      wgmma_ss<D>(q, da, make_desc<128>(st + XB + kk * 32, 16), acc);
+      wgmma_ss<D>(k, da, make_desc<128>(st + XB + WB + kk * 32, 16), acc);
+      wgmma_ss<D>(v, da, make_desc<128>(st + XB + 2 * WB + kk * 32, 16), acc);
     }
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs<NW / 2>(q);
-    fence_regs<NW / 2>(k);
-    fence_regs<NW / 2>(v);
+    fence_regs<D / 2>(q);
+    fence_regs<D / 2>(k);
+    fence_regs<D / 2>(v);
   }
   // every warpgroup is done with the ring: stage q, k (f32) and v (bf16-rounded)
   __syncthreads();
   float* qs = reinterpret_cast<float*>(base_ptr);
-  float* ks = qs + RP * DS;
-  float* vs = ks + RP * DS;
+  float* ks = qs + kHeadRows * DS;
+  float* vs = ks + kHeadRows * DS;
   {
     const int g = lane >> 2, qd = lane & 3;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int r = arow + 16 * warp + g + 8 * j;
 #pragma unroll
-      for (int c = 0; c < NW / 8; ++c) {
-        const int col = bcol + 8 * c + 2 * qd;
+      for (int c = 0; c < D / 8; ++c) {
+        const int col = 8 * c + 2 * qd;
         const int i0 = 4 * c + 2 * j;
         *reinterpret_cast<float2*>(qs + r * DS + col) = make_float2(q[i0], q[i0 + 1]);
         *reinterpret_cast<float2*>(ks + r * DS + col) = make_float2(k[i0], k[i0 + 1]);
@@ -996,16 +1037,410 @@ __global__ void __launch_bounds__(kHeadThreads, RP == 128 && D <= 64 ? 2 : 1)
   }
 }
 
-template <int D, int RP>
+template <int D>
 int launch_heads(const AttnParams& p, int H, int B, int smem, cudaStream_t st) {
   static cudaError_t attr = cudaFuncSetAttribute(
-      motion_attn<D, RP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      motion_attn<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(H, (p.L + p.Lt - 1) / p.Lt, B);
-  motion_attn<D, RP><<<grid, kHeadThreads, smem, st>>>(p);
+  motion_attn<D><<<grid, kHeadThreads, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
+
+// ====================================================================
+// the cluster regime (d = 80, 128, 160: levels 1-3 and the mid block)
+// ====================================================================
+
+constexpr int kClThreads = 384;  // 2 MMA warpgroups, warp 8 (TMA), warps 9-11
+constexpr int kClAttn = 352;     // the threads of the frame attention: all but warp 8's
+constexpr int kClSpan = 64;      // bf16 columns of a chunk: one 128-byte swizzle span
+
+// d <= 96: each MMA warpgroup owns a 64-row group (2 Lh tokens a CTA); d >=
+// 128: one 64-row group (Lh tokens) whose head columns the two split
+__host__ __device__ constexpr int cl_groups(int d) { return d >= 128 ? 1 : 2; }
+// a ring stage: the CTA's h chunk (64 rows x 128 bytes a group), then the
+// head's W_q, W_k and W_v chunks (d rows x 128 bytes each)
+__host__ __device__ constexpr int cl_stage_bytes(int d) {
+  return round_up(cl_groups(d) * 64 * 128 + 3 * d * 128, 1024);
+}
+// the attention groups (q, k, P, v^T as in the fused regime), which alias
+// the ring's last stages
+__host__ __device__ constexpr int cl_staging_bytes(int d) { return cl_groups(d) * group_bytes(d); }
+// the ring's first stages that the staging leaves alone
+__host__ __device__ constexpr int cl_free_stages(int d, int stages) {
+  return (stages * cl_stage_bytes(d) - cl_staging_bytes(d)) / cl_stage_bytes(d);
+}
+// the ring (at least as large as the staging) and the mbarriers (full and
+// empty a stage)
+__host__ __device__ constexpr int cl_smem(int d, int stages) {
+  return 1024 + stages * cl_stage_bytes(d) + 8 * 2 * stages;
+}
+
+struct ClParams {
+  CUtensorMap th;     // h (B, F, L, C) as (C, L, F, B): boxes (64, Lh, F, 1)
+  CUtensorMap tw[3];  // W_q, W_k, W_v (inner, C): boxes (64, d / cs)
+  bf16* o;            // (B, F, L, inner)
+  int F, L, C, inner, H, lh, kchunks, stages, cs, nblk, ntb, units;
+  float scale;
+};
+
+// unit u of a cluster: head hd (heads fastest, so that the clusters running
+// at once share their h rows in L2) over cs neighbouring token blocks of
+// the flattened (row, block) index; CTA `rank` takes block tb = (u / H) cs +
+// rank: row b, first token l0, nt[g] valid tokens in its group g (none
+// past the last block)
+struct ClUnit {
+  int hd, b, l0, nt[2];
+};
+template <int G>
+__device__ __forceinline__ ClUnit cl_unit(const ClParams& p, int u, int rank) {
+  ClUnit r;
+  r.hd = u % p.H;
+  const int tb = (u / p.H) * p.cs + rank;
+  const bool valid = tb < p.ntb;
+  r.b = valid ? tb / p.nblk : 0;
+  r.l0 = valid ? (tb % p.nblk) * G * p.lh : 0;
+#pragma unroll
+  for (int g = 0; g < 2; ++g)
+    r.nt[g] = valid && g < G ? max(0, min(p.lh, p.L - r.l0 - g * p.lh)) : 0;
+  return r;
+}
+
+// The logits and softmax of TP threads a (token t, query frame i) pair,
+// pair pi = t F + i of a group (na of them), for thread tg = TP pi + part:
+// the key frames j = part, part + TP, ... (at most JM), f32 dot products of
+// length D of the staged q and k times `scale`, the f32 softmax over the
+// key frames (the TP threads exchange their maximum and sum), the
+// probabilities rounded to bf16 into P at query row i Lh + t, key column j
+// Lh + t (P's other entries stay zero). Every thread of a warp calls it.
+template <int D, int JM, int TP>
+__device__ __forceinline__ void pair_logits(const float* qs, const float* ks, uint8_t* ptile,
+                                            float scale, int F, int lh, int na, int tg) {
+  constexpr int DS = D + kPad;
+  const int pi = tg / TP, part = tg % TP;
+  const bool active = pi < na;
+  const int t = active ? pi / F : 0, i = active ? pi % F : 0;
+  float lg[JM];
+#pragma unroll
+  for (int jj = 0; jj < JM; ++jj) lg[jj] = 0.f;
+  if (active) {
+    const float4* qv = reinterpret_cast<const float4*>(qs + (i * lh + t) * DS);
+    for (int c = 0; c < D / 4; ++c) {
+      const float4 a = qv[c];
+#pragma unroll
+      for (int jj = 0; jj < JM; ++jj) {
+        const int j = part + TP * jj;
+        if (j < F) {
+          const float4 k = reinterpret_cast<const float4*>(ks + (j * lh + t) * DS)[c];
+          lg[jj] = fmaf(a.x, k.x, fmaf(a.y, k.y, fmaf(a.z, k.z, fmaf(a.w, k.w, lg[jj]))));
+        }
+      }
+    }
+  }
+  float m = -INFINITY;
+#pragma unroll
+  for (int jj = 0; jj < JM; ++jj) {
+    lg[jj] *= scale;
+    if (active && part + TP * jj < F) m = fmaxf(m, lg[jj]);
+  }
+#pragma unroll
+  for (int off = 1; off < TP; off <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  float sum = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < JM; ++jj)
+    if (active && part + TP * jj < F) {
+      lg[jj] = ex2((lg[jj] - m) * kLog2e);
+      sum += lg[jj];
+    }
+#pragma unroll
+  for (int off = 1; off < TP; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (!active) return;
+  const float inv = __frcp_rn(sum);
+  const int r = i * lh + t;
+#pragma unroll
+  for (int jj = 0; jj < JM; ++jj) {
+    const int j = part + TP * jj;
+    if (j < F)
+      *reinterpret_cast<bf16*>(ptile + tile_off(r, j * lh + t)) = __float2bfloat16(lg[jj] * inv);
+  }
+}
+
+// the unit's frame attention logits over kClAttn threads (lt): TP = 4
+// threads a pair where that covers every pair of both groups in one pass,
+// else 2
+template <int D, int G>
+__device__ __forceinline__ void cl_logits(const ClParams& p, uint8_t* groups, const ClUnit& un,
+                                          int lt) {
+  const int na0 = un.nt[0] * p.F, na1 = un.nt[1] * p.F;
+  const int tp = 4 * (na0 + na1) <= kClAttn ? 4 : 2, jm = (p.F + tp - 1) / tp;
+  for (int base = 0; base < tp * (na0 + na1); base += kClAttn) {
+    const int pr = (base + lt) / tp;
+    const int g = G == 2 && pr >= na0 ? 1 : 0;
+    uint8_t* gb = groups + g * group_bytes(D);
+    const float* qs = reinterpret_cast<const float*>(gb);
+    const float* ks = qs + 64 * (D + kPad);
+    uint8_t* pt = gb + qk_bytes(D);
+    const int na = g ? na1 : na0, tg = tp * (pr - (g ? na0 : 0)) + (base + lt) % tp;
+    if (tp == 4) {
+      if (jm <= 2) pair_logits<D, 2, 4>(qs, ks, pt, p.scale, p.F, p.lh, na, tg);
+      else if (jm <= 4) pair_logits<D, 4, 4>(qs, ks, pt, p.scale, p.F, p.lh, na, tg);
+      else pair_logits<D, 8, 4>(qs, ks, pt, p.scale, p.F, p.lh, na, tg);
+    } else {
+      if (jm <= 2) pair_logits<D, 2, 2>(qs, ks, pt, p.scale, p.F, p.lh, na, tg);
+      else if (jm <= 4) pair_logits<D, 4, 2>(qs, ks, pt, p.scale, p.F, p.lh, na, tg);
+      else if (jm <= 8) pair_logits<D, 8, 2>(qs, ks, pt, p.scale, p.F, p.lh, na, tg);
+      else pair_logits<D, 16, 2>(qs, ks, pt, p.scale, p.F, p.lh, na, tg);
+    }
+  }
+}
+
+// Persistent clusters of cs CTAs, each cluster walking every
+// (gridDim.x / cs)-th unit. Warp 8's first thread loads the CTA's h rows
+// and its 1 / cs of the head's weight chunks, multicast to the cluster;
+// warpgroups 0 and 1 run the q/k/v products, stage them and run P . V;
+// warps 0-7 and 9-11 run the logits and softmax between.
+template <int D>
+__global__ void __launch_bounds__(kClThreads, 1) motion_cluster(const __grid_constant__ ClParams p) {
+  constexpr int G = cl_groups(D);
+  constexpr bool SPLIT = G == 1;
+  constexpr int NC = SPLIT ? D / 2 : D;  // a warpgroup's columns of q, k, v and o
+  constexpr int NW = 3 * NC;             // its product: q, k and v side by side
+  constexpr int DS = D + kPad;
+  constexpr int STAGE = cl_stage_bytes(D);
+  constexpr int HB = G * 64 * 128;       // the h part of a stage
+  extern __shared__ uint8_t smem_raw[];
+  // swizzled tiles want 1024-byte aligned bases
+  uint8_t* base_ptr = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sRing = smem_u32(base_ptr);
+  const int stages = p.stages, nfree = cl_free_stages(D, stages);
+  // the staging: the ring's last bytes, from stage nfree on
+  const uint32_t groups_off = stages * STAGE - cl_staging_bytes(D);
+  uint8_t* groups = base_ptr + groups_off;
+  const uint32_t bars = sRing + stages * STAGE;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (stages + s); };
+  const int rank = (int)cluster_rank(), cid = blockIdx.x / p.cs, ncl = gridDim.x / p.cs;
+
+  // h rows that no box writes (64 - F Lh of a group) stay zero, so v's
+  // rows there are zero; so do P's entries between frames of two tokens
+  for (uint32_t i = threadIdx.x * 16; i < bars - sRing; i += kClThreads * 16)
+    *reinterpret_cast<uint4*>(base_ptr + i) = make_uint4(0, 0, 0, 0);
+  fence_proxy_async();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8 * p.cs);  // every MMA warp of the cluster frees the stage
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // every CTA's barriers and zeroed ring before any multicast or remote arrival
+  cluster_arrive();
+  cluster_wait();
+
+  // Each unit's chunk kc takes stage kc % stages, so that the next unit's
+  // first nfree chunks load while this unit's attention holds the rest;
+  // the parity of each stage's barriers is a bit of `ph`
+  if (threadIdx.x >= 256) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n");
+    if (threadIdx.x == 256) {
+      // ------------------------------------------------------------ TMA
+      const uint16_t mask = (uint16_t)((1u << p.cs) - 1);
+      const int slice = D / p.cs, a = rank * slice;  // this CTA's rows of each weight
+      const uint32_t hbytes = p.lh * p.F * 128, wbytes = 3 * D * 128;
+      uint32_t ph = 0;
+      for (int u = cid; u < p.units; u += ncl) {
+        const ClUnit un = cl_unit<G>(p, u, rank);
+        const int nh = (un.nt[0] > 0) + (un.nt[1] > 0);
+        for (int kc = 0; kc < p.kchunks; ++kc) {
+          const int s = kc % stages;
+          mbar_wait(empty(s), ((ph >> s) & 1) ^ 1);
+          ph ^= 1u << s;
+          const uint32_t st = sRing + s * STAGE;
+          mbar_expect_tx(full(s), nh * hbytes + wbytes);
+          for (int w = 0; w < nh; ++w)
+            tma_load(st + w * 64 * 128, &p.th, full(s), kc * kClSpan, un.l0 + w * p.lh, 0, un.b);
+          // a warpgroup's q, k and v rows lie side by side (SPLIT: each
+          // warpgroup's half of the head)
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            const int row = SPLIT ? (a / NC) * NW + i * NC + a % NC : i * D + a;
+            tma_load_2d_mc(st + HB + row * 128, &p.tw[i], full(s), kc * kClSpan, un.hd * D + a,
+                           mask);
+          }
+        }
+      }
+    } else if (threadIdx.x >= 288) {
+      // ------------------------------------------- logits and softmax
+      for (int u = cid; u < p.units; u += ncl) {
+        named_sync(1, kClAttn);  // the unit's q, k and v are staged
+        cl_logits<D, G>(p, groups, cl_unit<G>(p, u, rank), threadIdx.x - 288 + 256);
+        fence_proxy_async();     // P is read by wgmma
+        named_sync(2, kClAttn);
+      }
+    }
+  } else {
+    // ------------------------------------------------------------- MMA
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n");
+    const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int grp = SPLIT ? 0 : wg, col0 = SPLIT ? wg * NC : 0;
+    const uint32_t aoff = grp * 64 * 128, boff = HB + (SPLIT ? wg * NW * 128 : 0);
+    uint8_t* gb = groups + grp * group_bytes(D);
+    float* qs = reinterpret_cast<float*>(gb);
+    float* ks = qs + 64 * DS;
+    uint8_t* vtile = gb + qk_bytes(D) + 64 * 128;
+    const uint32_t sP = sRing + groups_off + grp * group_bytes(D) + qk_bytes(D),
+                   sVt = sP + 64 * 128;
+    const int g = lane >> 2, qd = lane & 3;
+    // frees a stage in every CTA of the cluster: lanes 0 .. cs - 1 arrive
+    // on CTA `lane`'s barrier
+    auto release = [&](int st) {
+      __syncwarp();
+      if (lane < p.cs) mbar_arrive_cluster(empty(st), lane);
+    };
+    float acc[NW / 2];
+    uint32_t ph = 0;
+    for (int u = cid; u < p.units; u += ncl) {
+      const ClUnit un = cl_unit<G>(p, u, rank);
+      // the unit's q, k and v: one m64 n NW k16 product a k step, the last
+      // chunk's kept in flight while the next one's stage is awaited; a
+      // stage that the staging aliases is freed for its next use in the
+      // unit, else after the attention
+      int pend = -1;
+      for (int kc = 0; kc < p.kchunks; ++kc) {
+        const int s = kc % stages;
+        mbar_wait(full(s), (ph >> s) & 1);
+        ph ^= 1u << s;
+        const uint32_t st = sRing + s * STAGE;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kClSpan / 16; ++kk)
+          wgmma_ss<NW>(acc, make_desc<128>(st + aoff + kk * 32, 16),
+                       make_desc<128>(st + boff + kk * 32, 16), kc > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs<NW / 2>(acc);
+        if (pend >= 0 && (pend % stages < nfree || pend + stages < p.kchunks))
+          release(pend % stages);
+        pend = kc;
+      }
+      wgmma_wait_all();
+      fence_regs<NW / 2>(acc);
+      if (pend % stages < nfree || pend + stages < p.kchunks) release(pend % stages);
+      // both warpgroups' products have read the stages that the staging
+      // aliases
+      named_sync(3, 256);
+      // P is zero between the frames of two tokens (the staging's bytes
+      // held ring stages in between)
+      for (int i = threadIdx.x * 16; i < G * 64 * 128; i += 256 * 16)
+        *reinterpret_cast<uint4*>(groups + (i >> 13) * group_bytes(D) + qk_bytes(D) + (i & 8191)) =
+            make_uint4(0, 0, 0, 0);
+      // q and k in f32, v rounded to bf16 and transposed (register 4 c + 2
+      // j + e holds row 16 warp + g + 8 j, column 8 c + 2 qd + e of q's,
+      // then k's, then v's columns); v is zero in the rows that hold no
+      // token, whose h rows the ring's reuse left arbitrary
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = 16 * warp + g + 8 * j;
+        const bool tok = r < p.F * p.lh && r % p.lh < un.nt[grp];
+#pragma unroll
+        for (int c = 0; c < NW / 8; ++c) {
+          const int part = 8 * c / NC, col = col0 + 8 * c % NC + 2 * qd;
+          const float v0 = acc[4 * c + 2 * j], v1 = acc[4 * c + 2 * j + 1];
+          if (part == 0) {
+            *reinterpret_cast<float2*>(qs + r * DS + col) = make_float2(v0, v1);
+          } else if (part == 1) {
+            *reinterpret_cast<float2*>(ks + r * DS + col) = make_float2(v0, v1);
+          } else {  // v^T[col][r]
+            *reinterpret_cast<bf16*>(vtile + tile_off(col, r)) = __float2bfloat16(tok ? v0 : 0.f);
+            *reinterpret_cast<bf16*>(vtile + tile_off(col + 1, r)) = __float2bfloat16(tok ? v1 : 0.f);
+          }
+        }
+      }
+      fence_proxy_async();  // P and v^T are read by wgmma
+      named_sync(1, kClAttn);
+      cl_logits<D, G>(p, groups, un, threadIdx.x);
+      fence_proxy_async();  // P is read by wgmma
+      named_sync(2, kClAttn);
+      // P . V: m64 n NC k16 x 4 over the group's 64 keys (bf16 P times
+      // bf16 v^T, f32 sums), stored into o as bf16 pairs
+      {
+        float oacc[NC / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<NC>(oacc, make_desc<128>(sP + kk * 32, 16),
+                       make_desc<128>(sVt + col0 * 128 + kk * 32, 16), kk > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs<NC / 2>(oacc);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int r = 16 * warp + g + 8 * j, i = r / p.lh, t = r - i * p.lh;
+          if (i >= p.F || t >= un.nt[grp]) continue;
+          bf16* row = p.o + (((size_t)un.b * p.F + i) * p.L + un.l0 + grp * p.lh + t) * p.inner +
+                      un.hd * D + col0 + 2 * qd;
+#pragma unroll
+          for (int c = 0; c < NC / 8; ++c)
+            *reinterpret_cast<uint32_t*>(row + 8 * c) =
+                mma_tiles::pack_bf16(oacc[4 * c + 2 * j], oacc[4 * c + 2 * j + 1]);
+        }
+      }
+      // the staging is free: the stages it aliases take the next unit's chunks
+      for (int kc = max(0, p.kchunks - stages); kc < p.kchunks; ++kc)
+        if (kc % stages >= nfree) release(kc % stages);
+    }
+  }
+  __syncwarp();
+  // no CTA exits while its cluster may still multicast into it or arrive
+  // on its barriers
+  cluster_arrive();
+  cluster_wait();
+}
+
+// how many clusters of cs CTAs (smem bytes each) the card holds at once
+// (cudaOccupancyMaxActiveClusters), asked once per (d, cs, smem)
+template <int D>
+cudaError_t max_clusters(cudaLaunchConfig_t cfg, int cs, int smem, int* out) {
+  static int memo_smem[5] = {0, 0, 0, 0, 0}, memo_n[5];
+  if (memo_smem[cs] == smem) {
+    *out = memo_n[cs];
+    return cudaSuccess;
+  }
+  cfg.gridDim = dim3(cs);
+  cudaError_t e = cudaOccupancyMaxActiveClusters(out, (const void*)motion_cluster<D>, &cfg);
+  if (e != cudaSuccess) return e;
+  memo_smem[cs] = smem;
+  memo_n[cs] = *out;
+  return cudaSuccess;
+}
+
+template <int D>
+int launch_cluster(const ClParams& p, int smem, cudaStream_t st) {
+  static cudaError_t attr = cudaFuncSetAttribute(
+      motion_cluster<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchAttribute la;
+  la.id = cudaLaunchAttributeClusterDimension;
+  la.val.clusterDim.x = p.cs;
+  la.val.clusterDim.y = 1;
+  la.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kClThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &la;
+  cfg.numAttrs = 1;
+  int n = 0;
+  cudaError_t e = max_clusters<D>(cfg, p.cs, smem, &n);
+  if (e != cudaSuccess) return (int)e;
+  if (n < 1) return (int)cudaErrorInvalidConfiguration;  // such a cluster cannot be scheduled
+  cfg.gridDim = dim3((p.units < n ? p.units : n) * p.cs);
+  e = cudaLaunchKernelEx(&cfg, motion_cluster<D>, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -1091,20 +1526,20 @@ extern "C" int mmgt_ln_pe(const void* x, const void* gamma, const void* beta, in
   return (int)cudaGetLastError();
 }
 
-// The per-head kernel on h = ln_pe(x): H heads of D columns, W_q/W_k/W_v of
-// (inner, C) with inner = H D (inner = C unsharded; a head shard's rows
-// under tensor parallelism), o (B F L, inner). (rp, lt, stages, smem) is
-// the Python plan, checked here.
+// The per-head kernel on h = ln_pe(x): H heads of D columns (D <= 64 at C >
+// 320, or 96: the shapes the fused and cluster regimes do not take),
+// W_q/W_k/W_v of (inner, C) with inner = H D (inner = C unsharded; a head
+// shard's rows under tensor parallelism), o (B F L, inner). (lt, stages,
+// smem) is the Python plan, checked here.
 extern "C" int mmgt_motion_heads(const void* h, const void* wq, const void* wk, const void* wv,
                                 void* o, int B, int F, int L, int C, int H, int D, float scale,
-                                int rp, int lt, int stages, int smem, void* stream) {
+                                int lt, int stages, int smem, void* stream) {
   if (B <= 0 || L <= 0) return 0;
   if (H <= 0 || D <= 0 || C % 8 != 0 || F < 1 || F > 32 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   const int inner = H * D;
-  const int want_rp = D <= 96 ? 128 : 64;
-  if (rp != want_rp || lt < 1 || lt * F > rp || lt > L || stages < 2 || stages > 4 ||
-      smem != attn_smem(rp, D, stages, F, lt) || smem > kMaxSmem)
+  if (lt < 1 || lt * F > kHeadRows || lt > L || stages < 2 || stages > 4 ||
+      smem != attn_smem(D, stages, F, lt) || smem > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   AttnParams p;
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)L, (cuuint64_t)F, (cuuint64_t)B};
@@ -1120,15 +1555,60 @@ extern "C" int mmgt_motion_heads(const void* h, const void* wq, const void* wk, 
   p.scale = scale;
   if ((L + lt - 1) / lt > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {  // d = 80, 128 and 160 are the cluster regime's
+    case 16: return launch_heads<16>(p, H, B, smem, st);
+    case 32: return launch_heads<32>(p, H, B, smem, st);
+    case 40: return launch_heads<40>(p, H, B, smem, st);
+    case 64: return launch_heads<64>(p, H, B, smem, st);
+    case 96: return launch_heads<96>(p, H, B, smem, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+
+// The cluster regime on h = ln_pe(x): H heads of D = 80, 128 or 160
+// columns, W_q/W_k/W_v of (inner, C) with inner = H D (a head shard's rows
+// under tensor parallelism), o (B F L, inner); clusters of cs CTAs (D / cs
+// a multiple of 8). (cs, lh, stages, smem) is the Python plan, checked
+// here; the grid is as many clusters as the card holds at once (at most
+// one a unit), and a cluster the card cannot hold is an error.
+extern "C" int mmgt_motion_cluster(const void* h, const void* wq, const void* wk, const void* wv,
+                                   void* o, int B, int F, int L, int C, int H, int D, float scale,
+                                   int cs, int lh, int stages, int smem, void* stream) {
+  if (B <= 0 || L <= 0) return 0;
+  if (H <= 0 || C <= 0 || C % 8 != 0 || F < 1 || F > 32 || (D != 80 && D != 128 && D != 160) ||
+      (cs != 2 && cs != 4) || (D / cs) % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (lh != (64 / F < L ? 64 / F : L) || stages < 2 || stages > 8 || smem != cl_smem(D, stages) ||
+      smem > kMaxSmem || cl_free_stages(D, stages) < 1)
+    return (int)cudaErrorInvalidValue;
+  ClParams p;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)L, (cuuint64_t)F, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)L * C * 2,
+                                 (cuuint64_t)F * L * C * 2};
+  const cuuint32_t box[4] = {kClSpan, (cuuint32_t)lh, (cuuint32_t)F, 1};
+  if (!encode_bf16(&p.th, h, 4, dims, strides, box, 128)) return (int)cudaErrorInvalidValue;
+  const int inner = H * D;
+  const void* ws[3] = {wq, wk, wv};
+  for (int i = 0; i < 3; ++i)
+    if (!make_map_2d(&p.tw[i], ws[i], inner, C, D / cs))
+      return (int)cudaErrorInvalidValue;
+  p.o = (bf16*)o;
+  p.F = F; p.L = L; p.C = C; p.inner = inner; p.H = H; p.lh = lh;
+  p.kchunks = (C + kClSpan - 1) / kClSpan;
+  p.stages = stages;
+  p.cs = cs;
+  p.nblk = (L + cl_groups(D) * lh - 1) / (cl_groups(D) * lh);
+  const long long ntb = (long long)B * p.nblk, units = (long long)H * ((ntb + cs - 1) / cs);
+  if (units > 2147483647LL) return (int)cudaErrorInvalidValue;
+  p.ntb = (int)ntb;
+  p.units = (int)units;
+  p.scale = scale;
+  cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
-    case 16: return launch_heads<16, 128>(p, H, B, smem, st);
-    case 32: return launch_heads<32, 128>(p, H, B, smem, st);
-    case 40: return launch_heads<40, 128>(p, H, B, smem, st);
-    case 64: return launch_heads<64, 128>(p, H, B, smem, st);
-    case 80: return launch_heads<80, 128>(p, H, B, smem, st);
-    case 96: return launch_heads<96, 128>(p, H, B, smem, st);
-    case 128: return launch_heads<128, 64>(p, H, B, smem, st);
-    case 160: return launch_heads<160, 64>(p, H, B, smem, st);
+    case 80: return launch_cluster<80>(p, smem, st);
+    case 128: return launch_cluster<128>(p, smem, st);
+    case 160: return launch_cluster<160>(p, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

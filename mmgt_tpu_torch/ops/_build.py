@@ -56,7 +56,8 @@ SIGNATURES = {
         "mmgt_motion_fused": [VP] * 3 + [INT] + [VP] * 5 + [INT] * 6 + [FLT] * 2 + [INT] * 5
         + [VP],
         "mmgt_ln_pe": [VP] * 3 + [INT] + [VP] * 2 + [LL] + [INT] * 3 + [FLT, VP],
-        "mmgt_motion_heads": [VP] * 5 + [INT] * 6 + [FLT] + [INT] * 4 + [VP],
+        "mmgt_motion_heads": [VP] * 5 + [INT] * 6 + [FLT] + [INT] * 3 + [VP],
+        "mmgt_motion_cluster": [VP] * 5 + [INT] * 6 + [FLT] + [INT] * 4 + [VP],
     },
 }
 

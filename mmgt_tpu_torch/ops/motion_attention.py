@@ -10,18 +10,28 @@ the projection, f32 logits and softmax, probabilities rounded to the
 compute dtype, P . V summed in f32.
 
 K4 replaces the TPU kernel mmgt_tpu/ops/motion_attention.py:_motion_kernel
-(csrc/motion_attn.cu), in one of two regimes chosen by `attn_plan`:
+(csrc/motion_attn.cu), in one of three regimes chosen by `attn_plan`:
   * fused (C <= 320, d <= 64: level 0 and its head shards): one persistent
     kernel (`motion_fused`) reads x once per token block, normalises it on
     chip (the normalised rows never reach device memory), runs every head's
     q/k/v products on wgmma, the logits on the CUDA cores and P . V on
     wgmma, and writes only the attention output o;
-  * per head (every other shape): `ln_pe` writes the bf16 normalised row h,
-    then one block per (head, block of tokens, row) runs that head's
-    products and frame attention (`motion_attn`).
+  * clusters (d = 80, 128, 160: levels 1-3, the mid block and their head
+    shards): `ln_pe` writes the bf16 normalised row h, then persistent
+    thread block clusters of cs CTAs (`motion_cluster`) run one head over
+    cs token blocks a unit. Each CTA loads its h rows and 1 / cs of every
+    64-column weight chunk, multicast to the cluster, so a weight byte
+    fetched from L2 serves cs times the rows (cs = 2 at d = 80, 4 above),
+    and keeps the next chunk's product in flight. The frame attention runs
+    on 11 warps from a staging in the ring's last stages while the next
+    unit's first chunks load, P . V on wgmma;
+  * per head (every other shape: d <= 64 at C > 320 and d = 96, off the
+    main path): `ln_pe`, then one block per (head, block of tokens, row)
+    runs that head's products and frame attention (`motion_attn`).
 Then K3's GEMM (csrc/ln_proj.cu) without LayerNorm for W_o, with the bias
-and the residual. Both plans are computed here and checked by the C
-entries. gamma and beta are read as the model holds them (bf16 or f32), pe
+and the residual. The plans are computed here and checked by the C
+entries; a cluster regime launch the card cannot hold raises there. gamma
+and beta are read as the model holds them (bf16 or f32), pe
 as f32: the host casts nothing. On a head shard (tensor parallelism) the
 q/k/v weights are (H_local d, C) and W_o (C, H_local d): the kernels write
 o (M, H_local d) and the W_o GEMM runs without its residual and bias
@@ -94,14 +104,19 @@ def motion_attention_plain(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads: int,
 
 
 # K4's plans (csrc/motion_attn.cu). The fused regime: x (B, F, L, C) with
-# C <= 320 and d <= 64; the per-head regime: every other shape
+# C <= 320 and d <= 64; the cluster regime: d = 80, 128, 160; the per-head
+# regime: every other shape
 SMEM_LIMIT = 232448   # 227 KB a block on the H100
 TWO_BLOCKS = 115712   # two blocks an SM: (228 KB - 2 x 1 KB reserved) / 2
 SMS = 132             # the H100's SMs: the fused regime's persistent grid
 _PAD = 4              # f32 padding of a staged q/k row
+_HEAD_ROWS = 128      # rows of a per-head block: 64 a warpgroup
 _HEAD_DIMS = (16, 32, 40, 64, 80, 96, 128, 160)
 _MAX_CHANNELS = 2048  # ln_pe holds a row in one warp's registers
 _FUSED_C, _FUSED_D = 320, 64  # the fused regime's widest rows and heads
+# the cluster regime's head dims and the CTAs of a cluster, each loading
+# 1 / cs of a head's weight chunks for all of them (d / cs a multiple of 8)
+_CLUSTER = {80: 2, 128: 4, 160: 4}
 
 
 def _up(v: int, a: int) -> int:
@@ -120,15 +135,37 @@ def fused_smem(d: int, channels: int, stages: int) -> int:
     return 1024 + stripe + stages * stage + 2 * group + 2 * channels * 4 + 8 * (2 * stages + 3)
 
 
-def attn_smem(rp: int, d: int, stages: int, frames: int, lt: int) -> int:
+def attn_smem(d: int, stages: int, frames: int, lt: int) -> int:
     """Shared-memory bytes of a per-head block (as `attn_smem` in
     csrc/motion_attn.cu): alignment slack, the ring of (h chunk, W_q, W_k,
     W_v chunks) stages or the staged q/k/v that alias it, the (Lt, F, F)
     probabilities and the mbarriers."""
-    ring = stages * (rp * 128 + 3 * d * 128)
-    region = max(ring, 3 * rp * (d + _PAD) * 4)
+    ring = stages * (_HEAD_ROWS * 128 + 3 * d * 128)
+    region = max(ring, 3 * _HEAD_ROWS * (d + _PAD) * 4)
     probs = -(-lt * frames * frames * 4 // 16) * 16
     return 1024 + region + probs + 8 * stages
+
+
+def cluster_smem(d: int, stages: int) -> int:
+    """Shared-memory bytes of a cluster-regime CTA (as `cl_smem` in
+    csrc/motion_attn.cu): alignment slack; the ring of stages (the CTA's h
+    chunk, 64 rows x 64 columns a group, and the head's W_q, W_k and W_v
+    chunks), whose last stages the attention's staging aliases (q and k in
+    f32, P and v transposed in bf16: one group at d >= 128, else two); the
+    mbarriers."""
+    return 1024 + stages * cluster_stage(d) + 16 * stages
+
+
+def cluster_stage(d: int) -> int:
+    """A cluster-regime ring stage: 64 columns of the CTA's h rows and of
+    the head's three weights."""
+    return _up(((1 if d >= 128 else 2) * 64 + 3 * d) * 128, 1024)
+
+
+def cluster_staging(d: int) -> int:
+    """The cluster regime's attention staging (aliasing the ring's tail)."""
+    group = _up(2 * 64 * (d + _PAD) * 4, 1024) + 64 * 128 + d * 128
+    return (1 if d >= 128 else 2) * group
 
 
 def attn_plan(frames: int, tokens: int, channels: int, heads: int,
@@ -142,10 +179,18 @@ def attn_plan(frames: int, tokens: int, channels: int, heads: int,
     divisor of the heads: the fewest groups that fill the card as well as
     any) and the persistent grid (at most one block an SM).
 
-    The per-head regime: RP = 128 rows a block (two warpgroups of 64 rows)
-    for d <= 96, else 64 (the warpgroups split the head's columns); Lt = RP
-    // F tokens; the deepest ring (2-4 stages) that lets two blocks share an
-    SM, else the deepest that fits one. Raises on a shape it does not take."""
+    The cluster regime (d = 80, 128, 160): Lh = min(64 // F, L) tokens a
+    64-row group, two groups a CTA at d = 80 and one above; cs CTAs a
+    cluster (2 at d = 80, 4 above: d / cs rows of each weight a CTA); the
+    deepest ring of 64-column stages that fits (the staging aliases its
+    last stages, `free` stages are left); units = heads x the clusters'
+    token-block groups. The grid (as many clusters as the card holds at
+    once) is the C entry's.
+
+    The per-head regime (d <= 64 at C > 320, and d = 96): 128 rows a block
+    (two warpgroups of 64 rows); Lt = 128 // F tokens; the deepest ring
+    (2-4 stages) that lets two blocks share an SM, else the deepest that
+    fits one. Raises on a shape it does not take."""
     inner = channels if inner is None else inner
     d = inner // heads
     if inner != heads * d or d not in _HEAD_DIMS or channels % 8 != 0:
@@ -170,16 +215,26 @@ def attn_plan(frames: int, tokens: int, channels: int, heads: int,
             return dict(regime="fused", lh=lh, stages=fits[0], hg=heads // groups,
                         groups=groups, units=units, grid=min(units, SMS),
                         smem=fused_smem(d, channels, fits[0]))
-    rp = 128 if d <= 96 else 64
-    lt = max(1, min(rp // frames, tokens))
-    fits = [s for s in (4, 3, 2) if attn_smem(rp, d, s, frames, lt) <= TWO_BLOCKS]
+    if d in _CLUSTER:
+        cs, groups = _CLUSTER[d], 1 if d >= 128 else 2
+        lh = min(64 // frames, tokens)
+        # the deepest ring that fits, which leaves a stage or more to the
+        # next unit's loads while the staging holds the rest
+        stages = max(s for s in range(2, 9) if cluster_smem(d, s) <= SMEM_LIMIT)
+        free = (stages * cluster_stage(d) - cluster_staging(d)) // cluster_stage(d)
+        if free < 1:
+            raise ValueError(f"K4: no cluster plan at d = {d}")
+        blocks = batch * -(-tokens // (groups * lh))
+        return dict(regime="cluster", cs=cs, lh=lh, groups=groups, stages=stages, free=free,
+                    units=heads * -(-blocks // cs), smem=cluster_smem(d, stages))
+    lt = max(1, min(_HEAD_ROWS // frames, tokens))
+    fits = [s for s in (4, 3, 2) if attn_smem(d, s, frames, lt) <= TWO_BLOCKS]
     if not fits:
-        fits = [s for s in (4, 3, 2) if attn_smem(rp, d, s, frames, lt) <= SMEM_LIMIT]
+        fits = [s for s in (4, 3, 2) if attn_smem(d, s, frames, lt) <= SMEM_LIMIT]
     if not fits:
         raise ValueError(f"K4: no plan fits {SMEM_LIMIT} bytes at d = {d}, {frames} frames")
     stages = fits[0]
-    return dict(regime="heads", rp=rp, lt=lt, stages=stages,
-                smem=attn_smem(rp, d, stages, frames, lt))
+    return dict(regime="heads", lt=lt, stages=stages, smem=attn_smem(d, stages, frames, lt))
 
 
 def _check_param(t, n: int, what: str) -> None:
@@ -225,11 +280,15 @@ def _launch(x, gamma, beta, pe, wq, wk, wv, wo, bo, heads, eps, residual=True):
         rc = lib.mmgt_ln_pe(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ln_bf16,
                             pe.data_ptr(), h.data_ptr(), b * f * l, l, f, c, float(eps), stream)
         _build.check(lib, rc, "LayerNorm + pe (K4)")
-        rc = lib.mmgt_motion_heads(
-            h.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), o.data_ptr(), b, f, l, c,
-            heads, d, 1.0 / math.sqrt(d), plan["rp"], plan["lt"], plan["stages"], plan["smem"],
-            stream)
-        _build.check(lib, rc, "motion attention (K4, per head)")
+        ws = (h.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), o.data_ptr(), b, f, l, c,
+              heads, d, 1.0 / math.sqrt(d))
+        if plan["regime"] == "cluster":
+            rc = lib.mmgt_motion_cluster(*ws, plan["cs"], plan["lh"], plan["stages"],
+                                         plan["smem"], stream)
+            _build.check(lib, rc, "motion attention (K4, clusters)")
+        else:
+            rc = lib.mmgt_motion_heads(*ws, plan["lt"], plan["stages"], plan["smem"], stream)
+            _build.check(lib, rc, "motion attention (K4, per head)")
     (out,) = ln_gemm(o, None, None, [wo], [bo], res=[x2] if residual else None)
     LAUNCHES += 1
     return out.reshape(x.shape)

@@ -20,8 +20,12 @@ call, the bound (the larger of flops / 989
 TFLOP/s and bytes / 3.35 TB/s: the four C x inner products and the frame
 attention, x, the parameters and the output each moved once), the same
 call's wall and device ms with gamma and beta in f32, the error against the
-plain version, and the host's microseconds a call with the card held busy
-so that no call waits for it.
+plain version, the host's microseconds a call with the card held busy
+so that no call waits for it (the whole call, and each C entry it calls
+alone: `host_breakdown`), and the bytes that the plan's attention
+kernel pulls from L2 into the SMs a call (`l2_traffic`: the weights and
+the rows of h or x, worked out from `attn_plan`; the LayerNorm pre-pass
+and W_o not counted).
 
 `--root DIR` imports `mmgt_tpu_torch` from DIR instead, so that an unpacked
 older tree is timed by the same script (it uses only `motion_attention`,
@@ -86,6 +90,28 @@ def case(torch, M, row, g) -> dict:
             "" if tp == 1 else f" (W_q/k/v {(inner, c)}, W_o {(c, inner)}, no residual)"))
 
 
+def l2_traffic(M, row) -> dict:
+    """Bytes a call that the attention kernel of row's plan pulls from L2
+    into the SMs, from `attn_plan` (an older tree's too): each block, or
+    each cluster, fetches its head's W_q, W_k and W_v once (a cluster
+    multicasts them to its CTAs) and each CTA its rows of h (or of x in
+    the fused regime, once for all the unit's heads). In GB."""
+    _, _, (b, f, l, c), heads, tp = row
+    inner = c // tp
+    d = inner // heads
+    plan = M.attn_plan(f, l, c, heads, inner, b)
+    w = 3 * d * c * 2               # one head's W_q, W_k and W_v
+    rows = b * f * l * c * 2        # every row of h (or x) once
+    if plan["regime"] == "fused":   # a unit: its rows once, its hg heads' weights
+        wb, hb = plan["units"] * plan["hg"] * w, plan["groups"] * rows
+    elif plan["regime"] == "heads":  # a block: one head's weights, its rows
+        wb, hb = heads * b * -(-l // plan["lt"]) * w, heads * rows
+    else:                            # a cluster unit: one head's weights, its CTAs' rows
+        wb, hb = plan["units"] * w, heads * rows
+    return dict(regime=plan["regime"], weights_gb=wb / 1e9, rows_gb=hb / 1e9,
+                l2_gb=(wb + hb) / 1e9)
+
+
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -132,6 +158,41 @@ def host_us(torch, fn, calls: int = 100) -> float:
     return t
 
 
+class _EntryTimer:
+    """Stands in for a loaded library. Where `times` is set, each C entry
+    that the wrapper calls is first timed alone on the same arguments
+    (`host_us`), while the wrapper still holds every tensor they point to."""
+
+    def __init__(self, torch, lib, times):
+        self.torch, self.lib, self.times = torch, lib, times
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if not name.startswith("mmgt_") or name == "mmgt_error_string":
+            return fn
+
+        def timed(*args):
+            self.times[name] = host_us(self.torch, lambda: fn(*args))
+            return fn(*args)
+        return timed
+
+
+def host_breakdown(torch, _build, fn) -> dict:
+    """The host's microseconds a call of `fn` (one K4 call), and each C
+    entry of K4's and K3's libraries that it calls, timed alone inside one
+    call of `fn` (an older tree's entries too)."""
+    out = dict(host_us=host_us(torch, fn))
+    entries = out["entry_us"] = {}
+    libs = {name: _build.load(name) for name in ("motion_attn", "ln_proj")}
+    try:
+        for name, lib in libs.items():
+            _build._LIBS[name] = _EntryTimer(torch, lib, entries)
+        fn()
+    finally:
+        _build._LIBS.update(libs)
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", help="import mmgt_tpu_torch from this directory")
@@ -144,6 +205,7 @@ def main(argv=None) -> None:
         del sys.modules[mod]
     import torch
 
+    from mmgt_tpu_torch.ops import _build
     from mmgt_tpu_torch.ops import motion_attention as M
 
     if not torch.cuda.is_available():
@@ -167,7 +229,7 @@ def main(argv=None) -> None:
             launches=launches, f32_ms=time_ms(torch, cs["fn_f32"]), f32_device_ms=dev32,
             f32_kernels=kernels32, bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops >= t_bytes else "bytes", max_abs_err=err,
-            host_us=host_us(torch, cs["fn"]))
+            **host_breakdown(torch, _build, cs["fn"]), **l2_traffic(M, row))
         del cs, got
         torch.cuda.empty_cache()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

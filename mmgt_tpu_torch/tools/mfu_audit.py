@@ -29,10 +29,12 @@ ways:
         (`ops/fused_ln.py:gemm_plan`);
       - K4 (`csrc/motion_attn.cu`): at C <= 320 and d <= 64 its fused
         kernel runs every head's q/k/v products on 128-row units and P . V
-        as a 64 x 64 product a half; elsewhere its per-head kernel runs them
-        on blocks of RP rows (F x Lt of them used) and the frame attention
-        on Lt tokens a block (`ops/motion_attention.py:attn_plan`); W_o runs
-        on K3's GEMM plan;
+        as a 64 x 64 product a half; at d = 80, 128 and 160 its cluster
+        kernel runs them on one or two 64-row groups a CTA (F Lh rows of
+        each used) over 64-column chunks of C, cs CTAs a unit; elsewhere its
+        per-head kernel runs them on blocks of 128 rows (F x Lt of them used)
+        and the frame attention on Lt tokens a block
+        (`ops/motion_attention.py:attn_plan`); W_o runs on K3's GEMM plan;
   * closed_form: the JAX bench's (`bench.py:useful_flops`): 0.68e12 x 1.55
     FLOPs a UNet frame row, 1.24e12 a decoded 512^2 frame, and its rough
     SMGA term over 50 sampling steps.
@@ -118,9 +120,12 @@ def k4_executed(b: int, f: int, l: int, c: int, heads: int, inner: int) -> int:
     columns. The fused regime: each unit (2 Lh tokens of a row: two 64-row
     halves, F Lh of each used) runs every head's q, k and v on its 128 rows
     over 64-column chunks of C, the logits of its tokens and P . V as a
-    64 x 64 x d product a half and head. The per-head regime: one block per
-    head, Lt tokens and row runs q, k and v on RP rows and the frame
-    attention of Lt tokens. Then W_o on K3's plan."""
+    64 x 64 x d product a half and head. The cluster regime: each of a
+    unit's cs CTAs runs one head's q, k and v on its 64-row groups (one at d
+    >= 128, else two) over 64-column chunks of C, the logits of its
+    tokens and P . V as a 64 x 64 x d product a group. The per-head regime:
+    one block per head, Lt tokens and row runs q, k and v on 128 rows and
+    the frame attention of Lt tokens. Then W_o on K3's plan."""
     from mmgt_tpu_torch.ops.motion_attention import attn_plan
 
     plan = attn_plan(f, l, c, heads, inner, b)
@@ -130,8 +135,13 @@ def k4_executed(b: int, f: int, l: int, c: int, heads: int, inner: int) -> int:
         per_item = (3 * 2 * 128 * inner * _up(c, 64) + 2 * 2 * plan["lh"] * f * f * inner
                     + 2 * 2 * 64 * 64 * inner)
         return items * per_item + k3_executed(b * f * l, inner, [c])
+    if plan["regime"] == "cluster":
+        rows = 64 * plan["groups"]
+        per_cta = (3 * 2 * rows * d * _up(c, 64) + 2 * 2 * plan["groups"] * plan["lh"] * f * f * d
+                   + 2 * rows * 64 * d)
+        return plan["units"] * plan["cs"] * per_cta + k3_executed(b * f * l, inner, [c])
     blocks = heads * -(-l // plan["lt"]) * b
-    per_block = 3 * 2 * plan["rp"] * d * _up(c, 64) + 4 * plan["lt"] * f * f * d
+    per_block = 3 * 2 * 128 * d * _up(c, 64) + 4 * plan["lt"] * f * f * d
     return blocks * per_block + k3_executed(b * f * l, inner, [c])
 
 

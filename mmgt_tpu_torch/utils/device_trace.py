@@ -31,7 +31,7 @@ FAMILIES = (
     ("K2 gn_resident + gn_stream_*", ("gn_resident", "gn_stream")),
     ("K3 and K4's W_o: ln_gemm", ("ln_gemm",)),
     ("K4 fused: motion_fused", ("motion_fused",)),
-    ("K4 kernel A: motion_attn", ("motion_attn",)),
+    ("K4 clusters: motion_cluster", ("motion_cluster",)),
     ("K4 LayerNorm + pe: ln_pe", ("ln_pe",)),
     ("cuDNN convolution", ("fprop", "conv", "dgrad", "wgrad")),
     ("cuBLAS GEMM (Linear, einsum)", ("nvjet", "gemm", "cutlass", "Kernel2")),

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from mmgt_tpu_torch import ops
+from mmgt_tpu_torch.ops import _build
 from mmgt_tpu_torch.ops import attention as A
 from mmgt_tpu_torch.ops import fused_ln as L
 from mmgt_tpu_torch.ops import motion_attention as M
@@ -28,6 +29,11 @@ pytestmark = pytest.mark.gpu
 def gen():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    # every library built before the first test that profiles: a build
+    # takes 30-45 s, and a profiler session opened that long after the
+    # process's previous one loses kernels of its first milliseconds
+    # (`mmgt_tpu_torch/tools/trace_gap.py`; the launch checks below)
+    _build.build()
     return torch.Generator(device="cuda").manual_seed(0)
 
 
@@ -522,13 +528,25 @@ def test_motion_attention_kernel_shards(gen, c, tp, pdt):
     _k4_check(_k4_args(gen, (2, 12, 51, c), 8 // tp, tp, pdt))
 
 
+# a unit count that the cluster size does not divide: one row of L = 64 + 5
+# tokens, at d = 160 14 blocks of 5 tokens in clusters of 4, at d = 80 7
+# blocks of 10 in clusters of 2; gamma and beta in bf16 and f32
+@pytest.mark.parametrize("pdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [640, 1280])
+def test_motion_attention_kernel_ragged_clusters(gen, c, pdt):
+    plan = M.attn_plan(12, 69, c, 8, batch=1)
+    blocks = -(-69 // (plan["groups"] * plan["lh"]))
+    assert plan["regime"] == "cluster" and blocks % plan["cs"] != 0
+    _k4_check(_k4_args(gen, (1, 12, 69, c), 8, pdt=pdt))
+
+
 @pytest.mark.parametrize("c,pdt", [(320, torch.bfloat16), (320, torch.float32),
                                    (640, torch.float32), (1280, torch.bfloat16)])
 def test_motion_attention_launches_only_its_kernels(gen, c, pdt):
     """A K4 call launches only K4's kernels and K3's W_o GEMM, and no cast,
     with gamma and beta in bf16 or f32: at C <= 320 the fused kernel and
-    the GEMM; elsewhere the LayerNorm pre-pass, the per-head kernel and the
-    GEMM."""
+    the GEMM; at C = 640 and 1280 (d = 80, 160) the LayerNorm pre-pass, the
+    cluster kernel and the GEMM."""
     args = _k4_args(gen, (2, 12, 64, c), 8, pdt=pdt)
     M.motion_attention(*args)
     torch.cuda.synchronize()
@@ -536,7 +554,7 @@ def test_motion_attention_launches_only_its_kernels(gen, c, pdt):
         M.motion_attention(*args)
         torch.cuda.synchronize()
     kernels = [(e.key, e.count) for e in prof.key_averages() if e.device_time_total > 0]
-    want = ("motion_fused", "ln_gemm") if c <= 320 else ("ln_pe", "motion_attn", "ln_gemm")
+    want = ("motion_fused", "ln_gemm") if c <= 320 else ("ln_pe", "motion_cluster", "ln_gemm")
     assert len(kernels) == len(want) and all(n == 1 for _, n in kernels), kernels
     for name in want:
         assert sum(name in k for k, _ in kernels) == 1, (name, kernels)

@@ -78,7 +78,7 @@ def write_trace(path):
         ev("flash_fwd_kernel<48, 128>", "kernel", 150.0),
         ev("gn_resident<16>", "kernel", 80.0),
         ev("ln_gemm_kernel", "kernel", 120.0),
-        ev("motion_attn_kernel", "kernel", 60.0),
+        ev("motion_cluster<160>", "kernel", 60.0),
         ev("void at::native::vectorized_elementwise_kernel<4, at::native::AddFunctor<float>>",
            "kernel", 40.0),
         ev("sm90_xmma_gemm_bf16bf16_bf16f32", "kernel", 30.0),
@@ -96,7 +96,7 @@ def test_device_op_table_families_and_report_of_a_written_trace(tmp_path):
     path = write_trace(tmp_path / "t.json")
     rows = device_trace.device_op_table(str(path))
     assert rows == [("flash_fwd_kernel<48, 128>", 0.4, 2), ("ln_gemm_kernel", 0.12, 1),
-                    ("gn_resident<16>", 0.08, 1), ("motion_attn_kernel", 0.06, 1),
+                    ("gn_resident<16>", 0.08, 1), ("motion_cluster<160>", 0.06, 1),
                     ("void at::native::vectorized_elementwise_kernel<4, "
                      "at::native::AddFunctor<float>>", 0.04, 1),
                     ("sm90_xmma_gemm_bf16bf16_bf16f32", 0.03, 1),
@@ -105,7 +105,7 @@ def test_device_op_table_families_and_report_of_a_written_trace(tmp_path):
     fams = device_trace.summarize(rows)
     assert fams == pytest.approx({
         "K1 flash_fwd": 0.4, "K3 and K4's W_o: ln_gemm": 0.12, "K2 gn_resident + gn_stream_*": 0.08,
-        "K4 kernel A: motion_attn": 0.06, "elementwise": 0.04,
+        "K4 clusters: motion_cluster": 0.06, "elementwise": 0.04,
         "cuBLAS GEMM (Linear, einsum)": 0.03, "copy (memcpy, memset, copy kernels)": 0.03})
     assert device_trace.categorize("bwd_dq_kernel") == "K5 bwd_dsum + bwd_dq + bwd_dkv"
     assert device_trace.categorize("ln_pe_kernel") == "K4 LayerNorm + pe: ln_pe"

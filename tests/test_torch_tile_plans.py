@@ -126,12 +126,38 @@ def _k4_shapes(chans, tokens, heads):
             yield frames, l, c, heads
 
 
-def _check_k4_plan(plan, f, l, c, h, batch):
-    """A plan of either regime: fits 227 KB; the fused regime's halves hold
+def _k4_regime(c, d):
+    return "fused" if c <= 320 and d <= 64 else "cluster" if d in (80, 128, 160) else "heads"
+
+
+def _check_k4_plan(plan, f, l, c, h, batch, inner=None):
+    """A plan of any regime: fits 227 KB; the fused regime's halves hold
     whole tokens (F Lh <= 64 rows) and its persistent grid is at most one
-    block an SM; the per-head regime's blocks as before."""
-    d = c // h
-    assert plan["regime"] == ("fused" if c <= 320 and d <= 64 else "heads")
+    block an SM; the cluster regime's 64-row groups hold whole tokens, its
+    ring is the deepest that fits, the attention's staging aliases its last
+    stages and leaves one or more to the next unit's loads, each CTA loads
+    d / cs rows of a weight (a multiple of 8, so a slice starts on a
+    swizzle pattern) and its units cover every token block in whole
+    clusters; the per-head regime (d <= 64 or 96) has 128-row blocks.
+    inner: a head shard's columns (default C)."""
+    d = (inner or c) // h
+    assert plan["regime"] == _k4_regime(c, d)
+    if plan["regime"] == "cluster":
+        assert plan["lh"] == min(64 // f, l) and plan["lh"] * f <= 64
+        assert plan["groups"] == (1 if d >= 128 else 2)
+        assert plan["cs"] in (2, 4) and (d // plan["cs"]) % 8 == 0
+        assert plan["smem"] == M.cluster_smem(d, plan["stages"]) <= SMEM
+        assert plan["stages"] >= 2 and M.cluster_smem(d, plan["stages"] + 1) > SMEM
+        ring, stage = plan["stages"] * M.cluster_stage(d), M.cluster_stage(d)
+        assert plan["free"] >= 1 and (plan["free"] + 1) * stage > ring - M.cluster_staging(d)
+        assert plan["free"] * stage <= ring - M.cluster_staging(d)
+        blocks = batch * -(-l // (plan["groups"] * plan["lh"]))
+        assert plan["units"] == h * -(-blocks // plan["cs"])
+        # whole clusters of cs CTAs cover each head's blocks, with fewer
+        # than one cluster's CTAs past its last block (the C entry launches
+        # min(units, clusters the card holds) x cs CTAs)
+        assert h * blocks <= plan["units"] * plan["cs"] < h * (blocks + plan["cs"])
+        return
     if plan["regime"] == "fused":
         assert plan["lh"] == min(64 // f, l) and plan["lh"] * f <= 64
         assert 2 <= plan["stages"] <= 8
@@ -142,10 +168,10 @@ def _check_k4_plan(plan, f, l, c, h, batch):
         assert plan["units"] == items * plan["groups"]
         assert plan["grid"] == min(plan["units"], M.SMS) <= 132
     else:
-        assert plan["rp"] == (128 if d <= 96 else 64)
-        assert 1 <= plan["lt"] <= l and plan["lt"] * f <= plan["rp"]
+        assert d <= 64 or d == 96
+        assert 1 <= plan["lt"] <= l and plan["lt"] * f <= 128
         assert 2 <= plan["stages"] <= 4
-        assert plan["smem"] == M.attn_smem(plan["rp"], d, plan["stages"], f, plan["lt"]) <= SMEM
+        assert plan["smem"] == M.attn_smem(d, plan["stages"], f, plan["lt"]) <= SMEM
 
 
 @pytest.mark.parametrize("config,heads", [("full", 8), ("card tiny", 2)])
@@ -179,8 +205,9 @@ def test_k4_plan_head_shards(tp):
             l = 4096 // (c // 320) ** 2
             whole = M.attn_plan(f, l, c, 8, batch=4)
             shard = M.attn_plan(f, l, c, 8 // tp, c // tp, batch=4)
-            keys = ("regime", "lh", "stages", "smem") if whole["regime"] == "fused" else \
-                ("regime", "rp", "lt", "stages", "smem")
+            keys = {"fused": ("regime", "lh", "stages", "smem"),
+                    "cluster": ("regime", "cs", "lh", "groups", "stages", "smem"),
+                    "heads": ("regime", "lt", "stages", "smem")}[whole["regime"]]
             for key in keys:
                 assert shard[key] == whole[key], (c, f, tp, key)
             if shard["regime"] == "fused":
@@ -192,11 +219,44 @@ def test_k4_plan_head_shards(tp):
 @pytest.mark.parametrize("d", M._HEAD_DIMS)
 def test_k4_plan_every_head_dim(d):
     """Every head dim K4 takes plans at 1, 12 and 32 frames, two heads and
-    eight: the fused regime where C <= 320 and d <= 64, else per head."""
+    eight: the fused regime where C <= 320 and d <= 64, clusters at d =
+    80, 128 and 160, else per head."""
     for heads in (2, 8):
         c = heads * d
         for f in (1, 12, 32):
             _check_k4_plan(M.attn_plan(f, 100, c, heads, batch=2), f, 100, c, heads, 2)
+
+
+@pytest.mark.parametrize("c,tp", [(640, 1), (640, 2), (640, 4), (1280, 1), (1280, 2),
+                                  (1280, 4)])
+def test_k4_plan_cluster_regime(c, tp):
+    """Levels 1-3 and the mid block (C = 640, 1280: d = 80, 160) and their
+    tp = 2 and 4 head shards take the cluster regime at every token count
+    of the path (the denoiser's 4 rows, 12 frames): d = 80 in clusters of 2
+    with two 64-row groups a CTA (10 tokens), d = 160 in clusters of 4 with
+    one group (5 tokens); the weight bytes a call that the clusters pull
+    from L2 fall by cs against one fetch a block of the same rows."""
+    heads = 8 // tp
+    d = c // 8
+    for l in (1024, 256, 64, 69):
+        plan = M.attn_plan(12, l, c, heads, c // tp, batch=4)
+        _check_k4_plan(plan, 12, l, c, heads, 4, c // tp)
+        assert (plan["cs"], plan["groups"], plan["lh"]) == ((2, 2, 5) if d == 80 else (4, 1, 5))
+        blocks = 4 * -(-l // (plan["groups"] * plan["lh"]))
+        assert plan["units"] * plan["cs"] < heads * blocks + heads * plan["cs"]
+
+
+@pytest.mark.parametrize("c", [640, 1280])
+def test_k4_plan_regime_of_every_head_dim(c):
+    """At C = 640 and 1280 each head dim takes its regime: clusters at d =
+    80, 128 and 160, the per-head kernel at d = 16-64 and 96 (off the main
+    path, whose motion modules have d = 40 at C = 320 only)."""
+    for d in M._HEAD_DIMS:
+        if c % d:
+            continue
+        plan = M.attn_plan(12, 100, c, c // d, batch=2)
+        assert plan["regime"] == ("cluster" if d in (80, 128, 160) else "heads"), d
+        _check_k4_plan(plan, 12, 100, c, c // d, 2)
 
 
 @pytest.mark.parametrize("f,l,c,heads", [(33, 64, 320, 8), (12, 64, 320, 7), (12, 64, 64, 8),
